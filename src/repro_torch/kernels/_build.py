@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 SOURCES = {
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "block_delta": KERNELS_DIR / "block_delta" / "csrc" / "block_delta.cu",
+    "ssm_scan": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }
 
 _lock = threading.Lock()

@@ -2,15 +2,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --batch 4 --prompt-len 512 --tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
 
-The slice, on one device (``--device``, default ``cuda``):
+The slice, on one device (``--device``, default ``cuda``), for the dense,
+ssm and hybrid families:
 
   1. publish v0 of the float32 parameters into an in-process
      ``BackendService`` (256 KiB blocks, eager cache updates);
   2. ``SnapshotServer.refresh()`` pins it; a request prefills the prompts
-     (flash-attention kernel on CUDA), writes the prefill K/V into the
-     decode cache at ``[:, :, :S]`` and runs ``--tokens`` greedy decode
-     steps;
+     (flash-attention and selective-scan kernels on CUDA), seeds the
+     decode cache with the prefill K/V at ``[:, :, :S]`` and the SSM state,
+     and runs ``--tokens`` greedy decode steps;
   3. publish v1, a sparse update, IN PLACE: the block-delta kernel flags
      the dirty 256 KiB blocks of each leaf and ``TensorStore.save`` writes
      only those blocks under the same name;
@@ -64,13 +66,17 @@ def generate(
 
     Returns (prefill logits (B, V) float32, tokens (B, tokens + 1)): the
     argmax of the prefill logits followed by one token per decode step.
-    The decode cache has the compute type.
+    The decode cache has the compute type; prefill seeds its K/V at
+    ``[:, :, :S]`` and its SSM conv and scan state.
     """
     B, S = prompts.shape
     logits, pc = M.prefill(cfg, params, prompts, compute_dtype=compute_dtype)
     cache = M.make_decode_cache(cfg, B, S + tokens, compute_dtype, device=prompts.device)
-    cache["k"][:, :, :S] = pc["k"]
-    cache["v"][:, :, :S] = pc["v"]
+    for key, state in pc.items():
+        if key in ("k", "v"):
+            cache[key][:, :, :S] = state
+        else:
+            cache[key].copy_(state)
     tok = logits.argmax(dim=-1, keepdim=True)
     out = [tok]
     for i in range(tokens):
@@ -84,8 +90,9 @@ def generate(
 def sparse_update(cfg: ModelConfig, params: Dict, generator: torch.Generator,
                   *, rows: int = 8) -> Dict:
     """v1 of ``params``: ``rows`` random rows of ``embed`` and the first 16
-    input rows of the middle layer's ``mlp/wi`` get small random deltas.
-    The two touched leaves are new tensors; every other leaf is shared."""
+    input rows of the middle layer's ``mlp/wi`` (when the config has an
+    MLP) and ``ssm/in_proj`` (when it has an SSM) get small random deltas.
+    The touched leaves are new tensors; every other leaf is shared."""
     out = dict(params)
     dev = params["embed"].device
     embed = params["embed"].clone()
@@ -93,12 +100,15 @@ def sparse_update(cfg: ModelConfig, params: Dict, generator: torch.Generator,
     embed[idx] += 0.01 * torch.randn(rows, cfg.d_model, generator=generator, device=dev)
     out["embed"] = embed
     layers = dict(params["layers"])
-    mlp = dict(layers["mlp"])
-    wi = mlp["wi"].clone()
     layer = cfg.num_layers // 2
-    wi[layer, :16] += 0.01 * torch.randn(16, cfg.d_ff, generator=generator, device=dev)
-    mlp["wi"] = wi
-    layers["mlp"] = mlp
+    touched = ([("mlp", "wi")] if cfg.d_ff > 0 else []) + \
+        ([("ssm", "in_proj")] if cfg.has_ssm else [])
+    for group, name in touched:
+        sub = dict(layers[group])
+        w = sub[name].clone()
+        w[layer, :16] += 0.01 * torch.randn(16, w.shape[-1], generator=generator, device=dev)
+        sub[name] = w
+        layers[group] = sub
     out["layers"] = layers
     return out
 

@@ -1,11 +1,11 @@
-"""Dense decoder: param defs, init, prefill and decode, in PyTorch.
+"""Decoder: param defs, init, prefill and decode, in PyTorch.
 
-Port of ``repro.models.model`` for the dense family. Parameters are a plain
-nested dict of tensors with the reference's layer-stacked names and shapes
-(``layers/attn/wq`` is (L, D, H)), so one FaaSFS snapshot loads in either
-package. The decoder stack is a Python loop over the stacked layers. The
-other families and options raise ``NotImplementedError`` naming the slice
-that brings them (see ROADMAP.md).
+Port of ``repro.models.model`` for the dense, ssm and hybrid families.
+Parameters are a plain nested dict of tensors with the reference's
+layer-stacked names and shapes (``layers/attn/wq`` is (L, D, H)), so one
+FaaSFS snapshot loads in either package. The decoder stack is a Python loop
+over the stacked layers. MoE and vision-prefix configs raise
+``NotImplementedError`` naming the slice that brings them (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_xla, decode_attention_xla
 from repro_torch.models.layers import (
     apply_rope,
@@ -28,10 +29,7 @@ from repro_torch.models.layers import (
 PyTree = Dict
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.has_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the ssm and hybrid families come with the ssm_scan slice")
+def _require_ported(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: the MoE family comes with the MoE slice")
     if cfg.vision_prefix:
@@ -46,11 +44,11 @@ def _require_dense(cfg: ModelConfig) -> None:
 class ParamDef:
     path: Tuple[str, ...]
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | out_normal | zeros | ones
+    init: str = "normal"  # normal | out_normal | zeros | ones | ssm_A | dt_bias
 
 
 def param_defs(cfg: ModelConfig) -> List[ParamDef]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
     defs: List[ParamDef] = [
         ParamDef(("embed",), (V, D)),
@@ -58,24 +56,45 @@ def param_defs(cfg: ModelConfig) -> List[ParamDef]:
     ]
     if not cfg.tie_embeddings:
         defs.append(ParamDef(("lm_head",), (D, V)))
-    H, KV = cfg.q_dim, cfg.kv_dim
-    defs += [
-        ParamDef(("layers", "attn", "wq"), (L, D, H)),
-        ParamDef(("layers", "attn", "wk"), (L, D, KV)),
-        ParamDef(("layers", "attn", "wv"), (L, D, KV)),
-        ParamDef(("layers", "attn", "wo"), (L, H, D), "out_normal"),
-        ParamDef(("layers", "ln1"), (L, D), "ones"),
-    ]
-    if cfg.qkv_bias:
+    if cfg.has_attention:
+        H, KV = cfg.q_dim, cfg.kv_dim
         defs += [
-            ParamDef(("layers", "attn", "bq"), (L, H), "zeros"),
-            ParamDef(("layers", "attn", "bk"), (L, KV), "zeros"),
-            ParamDef(("layers", "attn", "bv"), (L, KV), "zeros"),
+            ParamDef(("layers", "attn", "wq"), (L, D, H)),
+            ParamDef(("layers", "attn", "wk"), (L, D, KV)),
+            ParamDef(("layers", "attn", "wv"), (L, D, KV)),
+            ParamDef(("layers", "attn", "wo"), (L, H, D), "out_normal"),
+            ParamDef(("layers", "ln1"), (L, D), "ones"),
         ]
-    if cfg.qk_norm:
+        if cfg.qkv_bias:
+            defs += [
+                ParamDef(("layers", "attn", "bq"), (L, H), "zeros"),
+                ParamDef(("layers", "attn", "bk"), (L, KV), "zeros"),
+                ParamDef(("layers", "attn", "bv"), (L, KV), "zeros"),
+            ]
+        if cfg.qk_norm:
+            defs += [
+                ParamDef(("layers", "attn", "q_norm"), (L, cfg.head_dim), "ones"),
+                ParamDef(("layers", "attn", "k_norm"), (L, cfg.head_dim), "ones"),
+            ]
+    if cfg.has_ssm:
+        Di, R, N, K = cfg.d_inner, cfg.dt_rank, cfg.ssm_state, cfg.ssm_conv
         defs += [
-            ParamDef(("layers", "attn", "q_norm"), (L, cfg.head_dim), "ones"),
-            ParamDef(("layers", "attn", "k_norm"), (L, cfg.head_dim), "ones"),
+            ParamDef(("layers", "ssm", "in_proj"), (L, D, 2 * Di)),
+            ParamDef(("layers", "ssm", "conv_w"), (L, Di, K)),
+            ParamDef(("layers", "ssm", "conv_b"), (L, Di), "zeros"),
+            ParamDef(("layers", "ssm", "x_proj"), (L, Di, R + 2 * N)),
+            ParamDef(("layers", "ssm", "dt_proj"), (L, R, Di)),
+            ParamDef(("layers", "ssm", "dt_bias"), (L, Di), "dt_bias"),
+            ParamDef(("layers", "ssm", "A_log"), (L, Di, N), "ssm_A"),
+            ParamDef(("layers", "ssm", "D"), (L, Di), "ones"),
+            ParamDef(("layers", "ssm", "out_proj"), (L, Di, D), "out_normal"),
+        ]
+        if cfg.family == "ssm":
+            defs.append(ParamDef(("layers", "ln1"), (L, D), "ones"))
+    if cfg.family == "hybrid":
+        defs += [
+            ParamDef(("layers", "attn_branch_norm"), (L, D), "ones"),
+            ParamDef(("layers", "ssm_branch_norm"), (L, D), "ones"),
         ]
     if cfg.d_ff > 0:
         F = cfg.d_ff
@@ -113,8 +132,19 @@ def init_params(
             v.mul_(std)
         elif d.init == "zeros":
             v = torch.zeros(d.shape, dtype=dtype, device=device)
-        else:
+        elif d.init == "ones":
             v = torch.ones(d.shape, dtype=dtype, device=device)
+        elif d.init == "ssm_A":
+            n = d.shape[-1]
+            a = torch.log(torch.arange(1, n + 1, dtype=dtype, device=device))
+            v = a.expand(d.shape).contiguous()
+        elif d.init == "dt_bias":
+            # inverse softplus of dt in [1e-3, 1e-1]
+            u = torch.rand(d.shape, generator=generator, dtype=dtype, device=device)
+            dt = torch.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+            v = dt + torch.log(-torch.expm1(-dt))
+        else:  # pragma: no cover
+            raise ValueError(d.init)
         _set_path(params, d.path, v)
     return params
 
@@ -166,20 +196,50 @@ def _qkv(cfg: ModelConfig, ap: Dict, h: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto"):
-    """One decoder block. Returns (x, (k, v))."""
-    B, S, _ = x.shape
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+def _attn_branch(cfg, lp, h, positions, *, q_chunk: int, attn_impl: str):
+    B, S, _ = h.shape
     ap = lp["attn"]
     q, k, v = _qkv(cfg, ap, h, positions)
     out = attention_xla(q, k, v, causal=True, window=cfg.sliding_window,
                         q_chunk=q_chunk, impl=attn_impl)
-    x = x + out.reshape(B, S, cfg.q_dim) @ ap["wo"]
+    return out.reshape(B, S, cfg.q_dim) @ ap["wo"], {"k": k, "v": v}
+
+
+def _ssm_branch(cfg, lp, h, *, scan_impl: str):
+    out, (conv, hs) = ssm_mod.mamba_block(
+        h, lp["ssm"], dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state,
+        impl=scan_impl, return_state=True)
+    return out, {"conv": conv, "ssm": hs}
+
+
+def _mix(cfg, lp, attn_out, ssm_out):
+    """Hybrid fusion: the mean of the separately normalized branches."""
+    return 0.5 * (rms_norm(attn_out, lp["attn_branch_norm"], cfg.norm_eps)
+                  + rms_norm(ssm_out, lp["ssm_branch_norm"], cfg.norm_eps))
+
+
+def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto",
+              scan_impl: str = "auto"):
+    """One decoder block. Returns (x, state): the layer's decode state,
+    {"k", "v"} for attention, {"conv", "ssm"} for the SSM, both for hybrid."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "hybrid":
+        attn_out, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
+                                       attn_impl=attn_impl)
+        ssm_out, ssm_state = _ssm_branch(cfg, lp, h, scan_impl=scan_impl)
+        state.update(ssm_state)
+        mix = _mix(cfg, lp, attn_out, ssm_out)
+    elif cfg.family == "ssm":
+        mix, state = _ssm_branch(cfg, lp, h, scan_impl=scan_impl)
+    else:
+        mix, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
+                                  attn_impl=attn_impl)
+    x = x + mix
     if cfg.d_ff > 0:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         mp = lp["mlp"]
         x = x + swiglu_mlp(h2, mp["wi"], mp["wg"], mp["wo"])
-    return x, (k, v)
+    return x, state
 
 
 # --------------------------------------------------------------------------- #
@@ -194,26 +254,28 @@ def forward_hidden(
     q_chunk: int = 0,
     collect_cache: bool = False,
     attn_impl: str = "auto",
+    scan_impl: str = "auto",
 ):
     """Embed -> blocks -> final norm.
 
-    Returns (hidden (B, S, D), cache (L,B,S,KV,hd)x2 | None). Inference
-    only: no rematerialization, no auxiliary loss.
+    Returns (hidden (B, S, D), cache | None): the layers' decode states
+    stacked on a leading L axis (``block_fwd``). Inference only: no
+    rematerialization, no auxiliary loss.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, compute_dtype)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
-    ks, vs = [], []
+    states: Dict[str, List[torch.Tensor]] = {}
     for i in range(cfg.num_layers):
-        x, (k, v) = block_fwd(cfg, x, _layer(layers, i), positions,
-                              q_chunk=q_chunk, attn_impl=attn_impl)
+        x, state = block_fwd(cfg, x, _layer(layers, i), positions, q_chunk=q_chunk,
+                             attn_impl=attn_impl, scan_impl=scan_impl)
         if collect_cache:
-            ks.append(k)
-            vs.append(v)
+            for key, t in state.items():
+                states.setdefault(key, []).append(t)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    caches = {k: torch.stack(v) for k, v in states.items()} if collect_cache else None
     return x, caches
 
 
@@ -231,16 +293,24 @@ def prefill(
     compute_dtype=torch.bfloat16,
     q_chunk: int = 1024,
     attn_impl: str = "auto",
+    scan_impl: str = "auto",
 ):
-    """Returns (last-position logits (B, V) float32, cache {"k","v"})."""
-    hidden, caches = forward_hidden(
+    """Returns (last-position logits (B, V) float32, cache).
+
+    The cache holds "k", "v" (L, B, S, KV, hd) for attention and, unlike
+    the reference, whose prefill returns only K/V, also the SSM decode
+    state after the prompt: "conv" (L, B, K-1, Di), the last K-1 positions
+    of each layer's conv input, and "ssm" (L, B, Di, N) float32, its scan's
+    last state. Copied into a ``make_decode_cache`` cache they let decode
+    continue after the prompt, as the serving path needs.
+    """
+    hidden, cache = forward_hidden(
         cfg, params, tokens, compute_dtype=compute_dtype, q_chunk=q_chunk,
-        collect_cache=True, attn_impl=attn_impl,
+        collect_cache=True, attn_impl=attn_impl, scan_impl=scan_impl,
     )
     head = lm_head_weight(cfg, params).to(compute_dtype)
     logits = (hidden[:, -1] @ head).float()
-    k, v = caches
-    return logits, {"k": k, "v": v}
+    return logits, cache
 
 
 # --------------------------------------------------------------------------- #
@@ -250,28 +320,62 @@ def make_decode_cache(
     cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     *, device: str = "cuda",
 ) -> PyTree:
-    """Zero-initialized decode cache {"k","v"}: (L, B, max_seq, KV, hd)."""
-    _require_dense(cfg)
+    """Zero-initialized decode cache: "k", "v" (L, B, max_seq, KV, hd) for
+    attention; "conv" (L, B, K-1, Di) and "ssm" (L, B, Di, N) float32 for
+    the SSM. Unlike the reference, which keeps "conv" in bf16 whatever
+    ``dtype`` is, "conv" has ``dtype``: decode writes it in place, and a
+    bf16 buffer would round a float32 model's conv state."""
+    _require_ported(cfg)
     if dtype == torch.int8:
         raise NotImplementedError("the int8 KV cache comes after the first slice")
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    L = cfg.num_layers
+    cache: Dict[str, torch.Tensor] = {}
+    if cfg.has_attention:
+        shape = (L, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.has_ssm:
+        cache["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                    dtype=dtype, device=device)
+        cache["ssm"] = torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)
+    return cache
 
 
-def _decode_block(cfg, x, lp, kc, vc, cur_index: int):
-    """x: (B,1,D); kc/vc: this layer's (B,S,KV,hd) cache, written in place
-    at ``cur_index``. Returns x."""
-    B = x.shape[0]
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    pos = torch.full((B, 1), cur_index, dtype=torch.int32, device=x.device)
+def _decode_attn(cfg, lp, h, cl, cur_index: int):
+    """Attention for one token; writes its K/V into ``cl`` at ``cur_index``."""
+    B = h.shape[0]
+    pos = torch.full((B, 1), cur_index, dtype=torch.int32, device=h.device)
     ap = lp["attn"]
     q, k, v = _qkv(cfg, ap, h, pos)
+    kc, vc = cl["k"], cl["v"]
     kc[:, cur_index] = k[:, 0].to(kc.dtype)
     vc[:, cur_index] = v[:, 0].to(vc.dtype)
     out = decode_attention_xla(q.to(kc.dtype), kc, vc, cur_index,
                                window=cfg.sliding_window)
-    x = x + out.reshape(B, 1, cfg.q_dim).to(h.dtype) @ ap["wo"]
+    return out.reshape(B, 1, cfg.q_dim).to(h.dtype) @ ap["wo"]
+
+
+def _decode_ssm(cfg, lp, h, cl):
+    """One SSM step; writes the new conv and scan state into ``cl``."""
+    out, conv, hs = ssm_mod.mamba_decode_step(
+        h, lp["ssm"], cl["conv"], cl["ssm"], dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state)
+    cl["conv"].copy_(conv)
+    cl["ssm"].copy_(hs)
+    return out
+
+
+def _decode_block(cfg, x, lp, cl, cur_index: int):
+    """x: (B,1,D); cl: this layer's cache views, written in place. Returns x."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "hybrid":
+        attn_out = _decode_attn(cfg, lp, h, cl, cur_index)
+        mix = _mix(cfg, lp, attn_out, _decode_ssm(cfg, lp, h, cl))
+    elif cfg.family == "ssm":
+        mix = _decode_ssm(cfg, lp, h, cl)
+    else:
+        mix = _decode_attn(cfg, lp, h, cl, cur_index)
+    x = x + mix
     if cfg.d_ff > 0:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         mp = lp["mlp"]
@@ -291,15 +395,15 @@ def decode_step(
     """One token for every sequence. tokens: (B, 1) -> (logits (B,V), cache).
 
     Unlike the reference, which returns a new cache, this writes the new
-    K/V into ``cache`` in place and returns it: the cache is the largest
-    decode buffer and a copy per step would double it.
+    K/V and SSM state into ``cache`` in place and returns it: the cache is
+    the largest decode buffer and a copy per step would double it.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, compute_dtype)
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
     for i in range(cfg.num_layers):
-        x = _decode_block(cfg, x, _layer(layers, i), cache["k"][i], cache["v"][i],
-                          int(cur_index))
+        cl = {k: c[i] for k, c in cache.items()}
+        x = _decode_block(cfg, x, _layer(layers, i), cl, int(cur_index))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = lm_head_weight(cfg, params).to(compute_dtype)
     logits = (x @ head)[:, 0].float()

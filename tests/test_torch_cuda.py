@@ -8,7 +8,9 @@ fixture decides at run time). On a machine with the card:
 builds the kernels (``nvcc``, ``sm_90a``) and holds each against its plain
 version on the same inputs: flash attention to 1e-5 in float32 and 2.5e-2
 in bf16 (the reference tests' bounds), block delta with q equal as int8,
-scale equal and norm2 to rtol 1e-5 (sums in another order).
+scale equal and norm2 to rtol 1e-5 (sums in another order), the selective
+scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
+and to 2e-4 on the last state.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,8 @@ from repro_torch.kernels.block_delta import ops as bd_ops
 from repro_torch.kernels.block_delta.ref import block_delta_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.state.checkpoint import dirty_block_indices, exact_dirty_blocks
@@ -38,6 +42,17 @@ FLASH_CASES = [  # tests/kernels/test_flash_attention.py, then ragged / small he
     (4, 512, 12, 2, 128, True, 0),     # qwen2-1.5b prefill, one layer
 ]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
+SCAN_CASES = [  # tests/kernels/test_ssm_scan.py, then ragged / other state sizes
+    (2, 64, 32, 8),
+    (1, 128, 64, 16),
+    (2, 96, 32, 8),
+    (1, 64, 128, 16),
+    (3, 33, 100, 16),
+    (1, 17, 5, 32),
+    (2, 40, 77, 4),
+    (4, 512, 3200, 16),                # hymba-1.5b prefill, one layer
+]
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-1}
 
 
 @pytest.fixture
@@ -110,17 +125,69 @@ def test_dirty_block_indices_on_card_sees_underflowing_delta(cuda):
     assert dirty_block_indices(new, old, 1 << 18) == [1]
 
 
-def test_reduced_generate_on_card_matches_cpu(cuda):
-    """The reduced serving computation in float32: card (flash kernel) and
-    CPU (plain math) give the same greedy tokens and close logits."""
-    cfg = reduced_config(get_config("qwen2-1.5b"))
+def _scan_inputs(B, S, Di, N, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, S, Di, generator=g, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, Di, generator=g, device=device) * 0.5 - 1.0)
+    b = torch.randn(B, S, N, generator=g, device=device)
+    c = torch.randn(B, S, N, generator=g, device=device)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device)).repeat(Di, 1)
+    d = torch.full((Di,), 0.5, device=device)
+    return x, dt, b, c, a_log, d
+
+
+@pytest.mark.parametrize("B,S,Di,N", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N, dtype):
+    x, dt, b, c, a_log, d = _scan_inputs(B, S, Di, N, cuda)
+    x = x.to(dtype)
+    a = -torch.exp(a_log)
+    before = scan_ops.selective_scan_fwd.launches
+    y, h = scan_ops.selective_scan(x, dt, b, c, a, d)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan_fwd.launches == before + 1
+    yr, hr = selective_scan_ref(x, dt, b, c, a, d)
+    assert y.dtype == dtype and y.shape == x.shape and h.shape == (B, Di, N)
+    assert float((y.float() - yr.float()).abs().max()) < SCAN_TOL[dtype]
+    assert float((h - hr).abs().max()) < 2e-4
+    # the Pallas signature
+    yp = scan_ops.ssm_scan(x, dt, b, c, a_log, d)
+    assert float((yp.float() - yr.float()).abs().max()) < SCAN_TOL[dtype]
+
+
+def test_ssm_scan_kernel_continues_from_h0(cuda):
+    """Two launches over halves of the sequence, the second from the first's
+    last state, give the one-launch result."""
+    x, dt, b, c, a_log, d = _scan_inputs(2, 64, 48, 16, cuda, seed=4)
+    a = -torch.exp(a_log)
+    y, h = scan_ops.selective_scan(x, dt, b, c, a, d)
+    y1, h1 = scan_ops.selective_scan(x[:, :40], dt[:, :40], b[:, :40], c[:, :40], a, d)
+    y2, h2 = scan_ops.selective_scan(x[:, 40:], dt[:, 40:], b[:, 40:], c[:, 40:], a, d, h0=h1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+def test_ssm_scan_kernel_refuses_unsupported_state_size(cuda):
+    x, dt, b, c, a_log, d = _scan_inputs(1, 8, 16, 12, cuda)
+    with pytest.raises(ValueError):
+        scan_ops.selective_scan_fwd(x, dt, b, c, -torch.exp(a_log), d)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b"])
+def test_reduced_generate_on_card_matches_cpu(cuda, arch):
+    """The reduced serving computation in float32: card (kernels) and CPU
+    (plain versions) give the same greedy tokens and close logits."""
+    cfg = reduced_config(get_config(arch))
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 40)))
     lc, tc = serve.generate(cfg, params, prompts, 8, compute_dtype=torch.float32)
     dev = _to(params, cuda)
-    before = fa_ops.flash_attention.launches
+    before = (fa_ops.flash_attention.launches, scan_ops.selective_scan_fwd.launches)
     lg, tg = serve.generate(cfg, dev, prompts.to(cuda), 8, compute_dtype=torch.float32)
-    assert fa_ops.flash_attention.launches == before + cfg.num_layers
+    L = cfg.num_layers
+    assert fa_ops.flash_attention.launches == before[0] + (L if cfg.has_attention else 0)
+    assert scan_ops.selective_scan_fwd.launches == before[1] + (L if cfg.has_ssm else 0)
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
                                atol=1e-4 * float(lc.abs().max()))
     assert torch.equal(tg.cpu(), tc)

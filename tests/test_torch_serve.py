@@ -3,7 +3,9 @@ prefill plus greedy decode, in-place delta publish, refresh, serve again.
 
 The greedy tokens equal those of the same composition of JAX functions
 (``M.prefill``, ``make_decode_cache`` with K/V set at ``[:, :, :S]``,
-``decode_step``) on the same float32 weights.
+``decode_step``) on the same float32 weights. For hymba-1.5b, whose JAX
+prefill returns no SSM state, the JAX side decodes the prompt token by
+token instead.
 """
 import jax
 import jax.numpy as jnp
@@ -184,3 +186,96 @@ def test_reference_checkpoint_delta_save_loses_clean_blocks():
     assert got[0, 0] == 9.0
     assert np.count_nonzero(got) == 1024 // 4   # the dirty block alone
     assert not np.array_equal(got, w2)
+
+
+# ------------------------------------------------------------------------- #
+# The hybrid family (hymba-1.5b, reduced): prefill seeds the SSM state too
+# ------------------------------------------------------------------------- #
+HYBRID = "hymba-1.5b"
+
+
+def _hybrid_weights(seed=0, gain=20.0):
+    """JAX-initialized weights with the normal-initialized matrices scaled
+    by ``gain`` (A_log, dt_bias, norms and skips keep their values)."""
+    jcfg = jax_reduced_config(jax_get_config(HYBRID))
+    host = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(seed)))
+    for d in JM.param_defs(jcfg):
+        if d.init in ("normal", "out_normal"):
+            node = host
+            for k in d.path[:-1]:
+                node = node[k]
+            node[d.path[-1]] = node[d.path[-1]] * gain
+    return jcfg, host
+
+
+def _jax_decode_generate(jcfg, host, prompts: np.ndarray, tokens: int):
+    """JAX ``decode_step`` over the prompt token by token, then ``tokens``
+    greedy steps: the JAX prefill returns no SSM state to continue from."""
+    params = jax.tree.map(jnp.asarray, host)
+    Bq, Sq = prompts.shape
+    cache = JM.make_decode_cache(jcfg, Bq, Sq + tokens, jnp.float32)
+    for i in range(Sq):
+        logits, cache = JM.decode_step(jcfg, params, cache, jnp.asarray(prompts[:, i:i + 1]),
+                                       jnp.int32(i), compute_dtype=jnp.float32)
+    tok = jnp.argmax(logits, axis=-1)[:, None]
+    out = [np.asarray(tok)]
+    for i in range(tokens):
+        step, cache = JM.decode_step(jcfg, params, cache, tok, jnp.int32(Sq + i),
+                                     compute_dtype=jnp.float32)
+        tok = jnp.argmax(step, axis=-1)[:, None]
+        out.append(np.asarray(tok))
+    return np.asarray(logits), np.concatenate(out, axis=1)
+
+
+@pytest.fixture(scope="module")
+def served_hybrid():
+    jcfg, host = _hybrid_weights()
+    cfg = reduced_config(get_config(HYBRID))
+    run = serve.run(cfg, device="cpu", batch=B, prompt_len=S, tokens=TOKENS, seed=0,
+                    compute_dtype=torch.float32, params=params_from_numpy(host, "cpu"))
+    return jcfg, cfg, run
+
+
+def test_hybrid_greedy_tokens_match_jax_decode_composition(served_hybrid):
+    """Prefill (K/V and SSM state) then greedy decode equals JAX decoding
+    the prompt token by token and then greedily: the same tokens, and
+    prefill logits within 1e-5 of the largest logit (float32)."""
+    jcfg, cfg, run = served_hybrid
+    prompts = run.prompts.numpy()
+    for params, (logits, toks) in ((run.params_v0, run.out_v0), (run.params_v1, run.out_v1)):
+        jlogits, jtoks = _jax_decode_generate(jcfg, params_to_numpy(params), prompts, TOKENS)
+        assert toks.shape == (B, TOKENS + 1)
+        np.testing.assert_array_equal(toks.numpy(), jtoks)
+        np.testing.assert_allclose(logits.numpy(), jlogits, rtol=0,
+                                   atol=1e-5 * np.abs(jlogits).max())
+    assert len(set(run.out_v0[1].reshape(-1).tolist())) > 1  # not a collapsed run
+    assert not torch.equal(run.out_v0[0], run.out_v1[0])    # v1 is served
+
+
+def test_hybrid_delta_publish_covers_the_ssm_leaf(served_hybrid):
+    _, cfg, run = served_hybrid
+    dirty = run.publish_v1.dirty
+    old, new = flat_tensors({"params": run.params_v0}), flat_tensors({"params": run.params_v1})
+    for name in new:
+        assert dirty[name] == exact_dirty_blocks(new[name], old[name], serve.BLOCK_BYTES)
+    assert set(k for k, v in dirty.items() if v) == {
+        "params/embed", "params/layers/mlp/wi", "params/layers/ssm/in_proj"}
+    assert run.publish_v1.stats["blocks_written"] == sum(len(v) for v in dirty.values())
+    dev = flat_tensors({"params": run.slice.device_params()})
+    for name, want in new.items():
+        assert dev[name].numpy().tobytes() == want.numpy().tobytes(), name
+
+
+def test_sparse_update_of_a_model_without_mlp_touches_the_ssm():
+    """falcon-mamba-7b has no MLP: the update touches ``embed`` and
+    ``ssm/in_proj`` only, and the in-place publish writes just those."""
+    cfg = reduced_config(get_config("falcon-mamba-7b"))
+    gen = torch.Generator().manual_seed(7)
+    sl = serve.ServeSlice(cfg, device="cpu", compute_dtype=torch.float32, tokens=1,
+                          block_bytes=1024)
+    v0 = M.init_params(cfg, gen, device="cpu")
+    sl.publish(v0)
+    info = sl.publish(serve.sparse_update(cfg, v0, gen))
+    assert set(k for k, v in info.dirty.items() if v) == {"params/embed",
+                                                          "params/layers/ssm/in_proj"}
+    assert info.stats["blocks_written"] == sum(len(v) for v in info.dirty.values())
