@@ -9,11 +9,13 @@ non-zero at the first failure:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the three CUDA kernels, one ``nvcc`` per source, all at once;
-  3. flash attention: the kernel against its plain version at the JAX
-     kernel tests' cases in float32 and bf16 and at the two serving shapes
-     (qwen2-1.5b: B 4, S 512, H 12, KV 2, hd 128; hymba-1.5b: H 25, KV 5,
-     hd 64, window 2048; causal, bf16); kernel, plain and
-     ``scaled_dot_product_attention`` times;
+  3. flash attention: the kernels against their plain version at the JAX
+     kernel tests' cases in float32 (CUDA-core kernel) and bf16
+     (tensor-core kernel) and at the two serving shapes (qwen2-1.5b: B 4,
+     S 512, H 12, KV 2, hd 128; hymba-1.5b: H 25, KV 5, hd 64, window
+     2048; causal, bf16); kernel, plain and ``scaled_dot_product_attention``
+     times, and the model-level ``attention()`` from (B, S, H, hd) inputs,
+     which adds the layout copies around the kernel;
   4. block delta: the kernel against its plain version at the shapes of
      the float32 leaves it sees on each serving path (8 of qwen2-1.5b, 18
      of hymba-1.5b); times;
@@ -28,14 +30,20 @@ non-zero at the first failure:
      float32 parameters), then, after its trees are freed, hymba-1.5b (32
      hybrid layers, 1.66 G): publish, refresh, serve 4 x 512-token prompts
      plus 32 greedy tokens, in-place delta publish, refresh, serve; launch
-     counts set to 0 before each run and read after it, and its results
+     counts set to 0 before each run and read after it (every bf16 prefill
+     attention must go to the tensor-core kernel), and its results
      checked;
   8. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
      over the two serving runs (``launches_by_path`` splits it); its times
      and bound are at the qwen2-1.5b serving shapes for flash attention and
      block delta (the hymba-1.5b ones are printed beside them) and at the
-     hymba-1.5b shape for the selective scan.
+     hymba-1.5b shape for the selective scan. ``ms``, ``plain_ms`` and
+     ``library_ms`` are eager times per call, which include the wrappers'
+     host work; ``device_ms`` and ``library_device_ms`` are device times of
+     the flash and scan calls and of SDPA (20 calls captured in a CUDA
+     graph, replayed), null for block delta, whose eager time is already
+     its device time.
 
 Without a CUDA device, or outside a checkout, it exits 1 and prints no
 result line. The kernels build into ``build/kernels`` of the checkout.
@@ -48,6 +56,7 @@ import json
 import math
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import threading
@@ -98,21 +107,59 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call on the card, by CUDA events."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean milliseconds per call on the card, by CUDA events. Eager, the
+    calls are issued from Python one after another, so a short kernel reads
+    its wrapper's host time; with ``graph`` the calls are captured once into
+    a CUDA graph and the graph is replayed three times, which leaves the
+    device time of what the calls launch."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run, reps = fn, iters
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, reps = g.replay, 3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters if graph else 1) / reps
+
+
+def ptxas_entries(log: str):
+    """(entry name, registers, spill-store bytes) for each entry point in an
+    ``nvcc -Xptxas -v`` log; names are demangled by ``c++filt`` where it is
+    on PATH."""
+    out, entry, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spill))
+            entry, spill = None, 0
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt", "-p"], input="\n".join(e for e, _, _ in out),
+                               capture_output=True, text=True).stdout.split("\n")
+        if len(names) >= len(out):
+            out = [(n, r, sp) for n, (_, r, sp) in zip(names, out)]
+    return out
 
 
 def attended_pairs(S: int, causal: bool, window: int) -> int:
@@ -146,7 +193,9 @@ def flash_phase(torch, fa_ops, attention_ref):
                                          f" err {err} >= {FLASH_TOL[name]}")
             worst = max(worst, err / FLASH_TOL[name])
     phase("flash", f"8 reference cases x {{float32, bf16}} within tolerance "
-                   f"(worst err/tol {worst:.3f})")
+                   f"(worst err/tol {worst:.3f}); launches: tensor-core "
+                   f"{fa_ops.flash_attention.launches_sm90}, CUDA-core "
+                   f"{fa_ops.flash_attention.launches_simt}")
 
     def serving_shape(B, S, H, KV, hd, window, tag):
         q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16, 7)
@@ -154,11 +203,20 @@ def flash_phase(torch, fa_ops, attention_ref):
         want = attention_ref(q, k, v, causal=True, window=window)
         err = float((got.float() - want.float()).abs().max())
         check(err < FLASH_TOL["bfloat16"], f"flash {tag} serving shape err {err}")
-        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window))
+        call = lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+        ms = time_ms(call)
+        device_ms = time_ms(call, graph=True)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, window=window))
         # window >= S here, so causal SDPA computes the same function
         ke, ve = k.repeat_interleave(H // KV, dim=1), v.repeat_interleave(H // KV, dim=1)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
+        sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True)  # noqa: E731
+        lib_ms = time_ms(sdpa)
+        lib_device_ms = time_ms(sdpa, graph=True)
+        # the model's call: (B, S, H, hd) in and out, transposes and the
+        # wrapper's .contiguous() copies around the same kernel
+        qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        model_ms = time_ms(lambda: fa_ops.attention(qm, km, vm, causal=True, window=window),
+                           graph=True)
         flops = 4 * hd * B * H * attended_pairs(S, True, window)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -166,16 +224,19 @@ def flash_phase(torch, fa_ops, attention_ref):
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
         }
         phase("flash", f"{tag}: B{B} S{S} H{H} KV{KV} hd{hd} causal window {window} bf16: "
-                       f"err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                       f"{lib_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+                       f"err {err:.3e}; eager per call: kernel {ms:.4f} ms, sdpa "
+                       f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms; device times (CUDA "
+                       f"graph): kernel {device_ms:.4f} ms, attention() from (B, S, H, hd) "
+                       f"{model_ms:.4f} ms, sdpa {lib_device_ms:.4f} ms; bound "
+                       f"{entry['bound_ms']:.4f} ms "
                        f"({entry['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        del q, k, v, ke, ve, got, want
+        del q, k, v, ke, ve, qm, km, vm, got, want
         torch.cuda.empty_cache()
         return entry
 
@@ -215,10 +276,10 @@ def block_delta_phase(torch, bd_ops, block_delta_ref, leaf_numels, block_elems, 
         "name": "block_delta", "route": "cuda",
         "source": "src/repro_torch/kernels/block_delta/csrc/block_delta.cu",
         "replaces": "src/repro/kernels/block_delta/kernel.py:36",
-        "max_abs_err": worst_abs, "ms": total_ms, "plain_ms": total_plain,
+        "max_abs_err": worst_abs, "ms": total_ms, "device_ms": None, "plain_ms": total_plain,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "library_ms": None, "library_device_ms": None,
     }
     phase("block_delta", f"{tag}: {len(leaf_numels)} leaves, {sum(leaf_numels) / 1e9:.3f} G "
                          f"float32 "
@@ -293,7 +354,9 @@ def scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref):
         check(err_h < 2e-4, f"ssm_scan serving last state err {err_h}")
         errs[str(xdt).split(".")[1]] = (err_y, err_h)
     x = x.bfloat16()
-    ms = time_ms(lambda: scan_ops.selective_scan(x, dt, b, c, a, d))
+    call = lambda: scan_ops.selective_scan(x, dt, b, c, a, d)  # noqa: E731
+    ms = time_ms(call)
+    device_ms = time_ms(call, graph=True)
     plain_ms = time_ms(lambda: selective_scan_ref(x, dt, b, c, a, d), iters=3, warmup=1)
     nbytes = (2 * x.numel() * x.element_size() + 4 * (dt.numel() + b.numel() + c.numel()
               + a.numel() + d.numel() + B * Di * N))
@@ -305,14 +368,15 @@ def scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref):
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:55",
-        "max_abs_err": max(errs["bfloat16"]), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "max_abs_err": max(errs["bfloat16"]), "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "library_ms": None, "library_device_ms": None,
     }
     phase("ssm_scan", f"hymba-1.5b: B{B} S{S} Di{Di} N{N}: y / last-state err, x bf16 "
                       f"{errs['bfloat16'][0]:.3e} / {errs['bfloat16'][1]:.3e}, x float32 "
-                      f"{errs['float32'][0]:.3e} / {errs['float32'][1]:.3e}; kernel {ms:.4f} ms, "
+                      f"{errs['float32'][0]:.3e} / {errs['float32'][1]:.3e}; kernel {ms:.4f} ms "
+                      f"eager per call, {device_ms:.4f} ms device (CUDA graph), "
                       f"plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
                       f"({entry['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); "
                       f"{B * S * Di * N / 1e6:.1f} M expf take {exp_ms:.4f} ms at "
@@ -399,19 +463,27 @@ def full_width_phase(torch, serve, M, counters, bridge, exact_dirty_blocks,
     torch.cuda.reset_peak_memory_stats()
     rss = _PeakRss()
     for fn in counters.values():
-        fn.launches = 0
+        for attr in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(fn, attr, 0)
     t0 = time.perf_counter()
     run = serve.run(cfg, device="cuda", batch=B, prompt_len=S, tokens=T, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    fa = counters["flash_attention"]
+    split = {"sm90": fa.launches_sm90, "simt": fa.launches_simt}
     phase("serve", f"{cfg.name}: {cfg.param_count()} params, run {wall:.1f} s; launches "
-                   f"{launches}")
+                   f"{launches}; flash_attention by kernel {split}")
     on_path = {"flash_attention": cfg.has_attention, "block_delta": True,
                "ssm_scan": cfg.has_ssm}
     for name, used in on_path.items():
         check(launches[name] > 0 or not used,
               f"{name} kernel never launched on the {cfg.name} serving path")
+    # two requests, one bf16 prefill each, one attention per layer
+    want_sm90 = 2 * cfg.num_layers if cfg.has_attention else 0
+    check(split == {"sm90": want_sm90, "simt": 0},
+          f"{cfg.name}: flash launches by kernel {split}, want all {want_sm90} on the "
+          f"tensor-core kernel")
 
     for tag, (logits, toks) in (("v0", run.out_v0), ("v1", run.out_v1)):
         check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -547,12 +619,8 @@ def main() -> int:
                        f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
         check(sorted(_build.SOURCES) == sorted(counters), "a kernel source has no counter")
         for name in _build.SOURCES:
-            log = _build.build_log(name)
-            regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-            spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-            if regs:
-                phase("build", f"{name}: {len(regs)} entry points, {min(regs)}-{max(regs)} "
-                               f"registers, spill stores up to {max(spills, default=0)} B")
+            for entry, regs, spill in ptxas_entries(_build.build_log(name)):
+                phase("build", f"{name}: {entry}: {regs} registers, {spill} B spill stores")
 
         block_elems = serve.BLOCK_BYTES // 4
         entries = {"flash_attention": flash_phase(torch, fa_ops, attention_ref)}
@@ -578,7 +646,8 @@ def main() -> int:
         e["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "launches_by_path"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

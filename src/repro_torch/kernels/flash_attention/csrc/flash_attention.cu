@@ -6,11 +6,33 @@
 // accumulator are float32, masks of -1e30, fully masked KV tiles skipped,
 // rows with l == 0 written as 0, and scale 1/sqrt(head_dim).
 //
-// Design. The TPU kernel walks the KV blocks as the last, sequential grid
-// axis and carries m, l and acc in VMEM scratch between grid steps. A Hopper
-// grid has no sequential axis, so here one thread block owns one
-// (batch, head, 64-row query tile) and runs the KV loop itself, keeping
-// m and l in shared memory and acc in registers. Per KV tile of 64 keys:
+// Two kernels, two C entry points; the wrapper (../ops.py) picks one by
+// type and head_dim. Both take any Sq and Sk and GQA (query head h reads KV
+// head h / (H / KV)).
+//
+// fa_fwd_sm90 (repro_flash_attention_fwd_sm90): bf16, head_dim 64 or 128,
+// on the tensor cores. One block of 160 threads owns one (batch, head,
+// 64-row query tile): warps 0-3 are one consumer warpgroup, warp 4 the
+// producer. The producer's lane 0 loads Q once and K and V tiles of 64
+// keys with TMA (cp.async.bulk.tensor, tensor maps built on the host,
+// 128-byte swizzle, rows past Sq or Sk read as zeros) into two rings of two
+// stages, K and V apart, each stage with a full and an empty mbarrier: a K
+// tile is released as soon as its scores are computed, so the next K load
+// starts a whole tile earlier than a V load could. Per KV tile the consumer
+// issues the NEXT tile's S = Q K^T (wgmma m64n64k16, both operands from
+// shared memory, K-major) and runs this tile's softmax while it computes:
+// the mask only on tiles that cross the diagonal, the window edge or Sk,
+// the online softmax on the accumulator fragment (row max and sum over the
+// four lanes of a quad; scores kept times log2(e) so each exponential is
+// one ex2.approx), and P rounded to bf16 in registers as the TPU kernel
+// does before its PV product; then O += P V with wgmma m64n{hd}k16, A from
+// registers and V as an MN-major (transposed) B operand. Query tiles are
+// launched heaviest first (the last tile of a causal row first). The
+// epilogue divides by l (1 where l == 0) and stores bf16.
+//
+// fa_fwd_kernel (repro_flash_attention_fwd): float32 (every head_dim) and
+// bf16 at head_dim 16 or 32, on the CUDA cores. Same block ownership; per
+// KV tile of 64 keys:
 //   1. K and V are loaded into shared memory, converted to float32;
 //   2. S = Q K^T * scale: each of 256 threads computes a 4 x 4 block of the
 //      64 x 64 scores with fmaf over head_dim;
@@ -19,23 +41,25 @@
 //   4. acc = acc * alpha + P V: each thread owns 4 rows x head_dim/16
 //      columns of acc.
 // Rows and columns of shared tiles are padded by one float so that the
-// strided reads of steps 2 and 4 hit distinct banks. GQA maps query head h
-// to KV head h / (H / KV). Query rows and keys beyond Sq and Sk are zeros
-// and masked, so any sequence length is taken.
+// strided reads of steps 2 and 4 hit distinct banks. Every product and sum
+// is IEEE float32 (no TF32, no tensor cores), so float32 inputs meet the
+// 1e-5 bound of the reference tests; P stays float32 for the PV product.
 //
-// Numbers. Every product and sum is IEEE float32 on the CUDA cores (no
-// TF32, no tensor cores), so float32 inputs meet the 1e-5 bound of the
-// reference tests. P stays float32 for the PV product (the TPU kernel
-// rounds it to the input type first), which is as close or closer to the
-// plain version.
-//
-// Bound. For causal attention at the serving shape (B 4, S 512, H 12,
-// KV 2, hd 128, bf16) one call needs 4*hd*B*H*S(S+1)/2 = 3.2 GFLOP, 3.3 us
-// at the 989 TFLOP/s bf16 tensor rate, and moves q, k, v and o once,
-// 14.7 MB, 4.4 us at 3.35 TB/s; the bytes bound it. This kernel runs on the
-// CUDA cores at float32 rate, far from either: wgmma, TMA and a pipelined
-// KV ring are later work.
+// Bound. For causal attention at the qwen2-1.5b serving shape (B 4, S 512,
+// H 12, KV 2, hd 128, bf16) one call needs 4*hd*B*H*S(S+1)/2 = 3.2 GFLOP,
+// 3.3 us at the 989 TFLOP/s bf16 tensor rate, and moves q, k, v and o once,
+// 14.7 MB, 4.4 us at 3.35 TB/s; the bytes bound it. On an H100 (700 W)
+// fa_fwd_sm90 takes about 0.018 ms there, level with PyTorch's SDPA, and
+// 0.023 ms at the hymba-1.5b shape (SDPA 0.021) (chip_smoke.py, device
+// times). What holds it back is each block's serial chain, not a unit's
+// rate: per KV tile the softmax and the waits for K, V and the products
+// follow one another in one warpgroup, and a block's first Q and K loads,
+// which every block issues at once, come before any of them. Blocks
+// that serve several heads of a GQA group (sharing K and V) and a
+// persistent grid that prefetches the next tile's Q were both slower. The
+// CUDA-core kernel runs at float32 rate, far from either bound.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,10 +270,473 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// fa_fwd_sm90: bf16 on the tensor cores (wgmma), K and V fed by TMA.
+
+constexpr int SM90_STAGES = 2;         // K/V ring depth
+constexpr int SM90_THREADS = 160;      // one consumer warpgroup + one producer warp
+constexpr int PANEL = 64 * 64;         // bf16 elements of a 64-row x 128-byte swizzled panel
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of the given parity has completed. A wait that
+// never completes (a copy that never lands) traps after 2^28 polls rather
+// than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One 64 x 64 bf16 box of a 3-D tensor map (column, row, slab) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                         int row, int slab) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(slab)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. lbo and sbo in
+// bytes: for a K-major operand sbo is the stride between 8-row groups (lbo
+// unused); for an MN-major one lbo is the stride between 64-element
+// column panels and sbo the stride between groups of 8 K rows.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n64k16_rs(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_m64n128k16_rs(d, a, db);
+}
+
+// 2^x on the special-function unit (ex2.approx, about 2 ulp; results
+// below 2^-126 flush to 0), which is all that P, rounded to bf16 next,
+// can use.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD>
+constexpr size_t sm90_smem_bytes() {
+  // Q, then SM90_STAGES x (K, V), each HD / 64 swizzled panels; then the
+  // mbarriers; plus slack to align the tiles to 1024 bytes.
+  return (size_t)(1 + 2 * SM90_STAGES) * HD * 64 * 2 + 8 * (1 + 4 * SM90_STAGES) + 1024;
+}
+
+// Waits for a K tile and issues S = Q K^T for it (no wait for the
+// product): head_dim in steps of 16, 32 bytes of a 128-byte swizzled row.
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&sc)[32], const __nv_bfloat16* q_s,
+                                             const __nv_bfloat16* kt, uint64_t* full,
+                                             uint32_t parity) {
+  mbar_wait(full, parity);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk / 4) * PANEL + (kk % 4) * 16;
+    wgmma_m64n64k16_ss(sc, smem_desc(q_s + off, 16, 1024), smem_desc(kt + off, 16, 1024),
+                       kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Accumulator fragment of wgmma m64nN (f32), thread t of the warpgroup:
+// element 4j + 2i + c is row 16 (t / 32) + (t % 32) / 4 + 8i, column
+// 8j + 2 (t % 4) + c. Four such elements over 16 columns are exactly the
+// bf16 A fragment of the next m64k16 product, which is how P feeds PV.
+// Two blocks per SM at head_dim 128 (shared memory allows no more), three
+// at 64 (registers allow no more).
+template <int HD>
+__global__ void __launch_bounds__(SM90_THREADS, HD == 64 ? 3 : 2)
+fa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int B, int H,
+            int KV, int Sq, int Sk, int causal, int window, float scale) {
+  constexpr int NP = HD / 64;          // panels per tile
+  constexpr int TILE = NP * PANEL;     // bf16 elements per Q, K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* base = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* q_s = base;
+  __nv_bfloat16* k_s = base + TILE;                      // + stage * TILE
+  __nv_bfloat16* v_s = base + (1 + SM90_STAGES) * TILE;  // + stage * TILE
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + (1 + 2 * SM90_STAGES) * TILE);
+  // K and V have rings of their own: a K tile is released as soon as its
+  // scores are computed, a V tile after its PV product.
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;                      // [SM90_STAGES] each
+  uint64_t* k_empty = bars + 1 + SM90_STAGES;
+  uint64_t* v_full = bars + 1 + 2 * SM90_STAGES;
+  uint64_t* v_empty = bars + 1 + 3 * SM90_STAGES;
+
+  // Heaviest query tiles first: block 0 takes the last tile of (b 0, h 0).
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nq - 1 - blockIdx.x / (B * H);
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q_start = qt * BQ;
+
+  // The reachable KV tiles [lo, hi): the TPU kernel's block rule.
+  int hi = (Sk + BK - 1) / BK;
+  if (causal) hi = min(hi, (q_start + BQ - 1) / BK + 1);
+  int lo = 0;
+  if (window > 0 && q_start - window + 1 > 0) lo = (q_start - window + 1) / BK;
+  const int n_tiles = max(hi - lo, 0);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < SM90_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4);  // one arrival per consumer warp
+      mbar_init(&v_empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // Producer warp: lane 0 issues every copy.
+    if (tid == 128) {
+      mbar_expect_tx(q_full, TILE * 2);
+      for (int p = 0; p < NP; ++p) tma_load(q_s + p * PANEL, &tm_q, q_full, 64 * p, q_start, b * H + h);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % SM90_STAGES, r = i / SM90_STAGES;
+        const int row = (lo + i) * BK, slab = b * KV + kvh;
+        if (r > 0) mbar_wait(&k_empty[s], (r - 1) & 1);
+        mbar_expect_tx(&k_full[s], TILE * 2);
+        for (int p = 0; p < NP; ++p)
+          tma_load(k_s + s * TILE + p * PANEL, &tm_k, &k_full[s], 64 * p, row, slab);
+        if (r > 0) mbar_wait(&v_empty[s], (r - 1) & 1);
+        mbar_expect_tx(&v_full[s], TILE * 2);
+        for (int p = 0; p < NP; ++p)
+          tma_load(v_s + s * TILE + p * PANEL, &tm_v, &v_full[s], 64 * p, row, slab);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup. Scores are kept as s * scale * log2(e), so that
+  // exp(s * scale - m) is 2^ of the difference; masked entries and the
+  // initial m stay -1e30, as in the TPU kernel.
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q_start + 16 * warp + lane / 4;   // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);                    // + 8j + c within a tile
+  const float scale2 = scale * 1.4426950408889634f;
+  float acc[HD / 2];
+  float sc[32], sn[32];   // this tile's scores; the next tile's, in flight
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = sn[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};   // this thread's partial row sums
+
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    issue_scores<HD>(sc, q_s, k_s, &k_full[0], 0);
+    wgmma_wait_all();
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&k_empty[0]);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % SM90_STAGES;
+    const int k_start = (lo + i) * BK;
+    // The next tile's S = Q K^T runs on the tensor cores during this
+    // tile's softmax.
+    if (i + 1 < n_tiles) {
+      const int sn_stage = (i + 1) % SM90_STAGES;
+      issue_scores<HD>(sn, q_s, k_s + sn_stage * TILE, &k_full[sn_stage],
+                       ((i + 1) / SM90_STAGES) & 1);
+    }
+
+    // Scale and mask: only a tile that crosses Sk, the diagonal or the
+    // window edge has masked entries.
+    const bool edge = (k_start + BK > Sk) || (causal && k_start + BK - 1 > q_start) ||
+                      (window > 0 && k_start <= q_start + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = row0 + 8 * (e / 2), kpos = k_start + 8 * j + col0 + (e % 2);
+          bool ok = kpos < Sk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          sc[4 * j + e] = ok ? sc[4 * j + e] * scale2 : NEG_INF;
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= scale2;
+    }
+
+    // Online softmax on the fragment; the four lanes of a quad share rows.
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mj[8];   // a tree, not a chain of 16 dependent maxima
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mj[j] = fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]);
+#pragma unroll
+      for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+        for (int j = 0; j < w; ++j) mj[j] = fmaxf(mj[j], mj[j + w]);
+      float mx = mj[0];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      alpha[r] = exp2_approx(m_run[r] - m_new);
+      m_run[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2_approx(sc[4 * j + 2 * r + c] - m_new);
+          sc[4 * j + 2 * r + c] = p;
+          sum += p;
+        }
+      l_run[r] = alpha[r] * l_run[r] + sum;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e / 2];
+
+    // P in bf16: 16 keys of the fragment are one A operand of m64k16.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V: V (keys, hd) is MN-major for B; 16 keys = two 8-row groups.
+    const __nv_bfloat16* vt = v_s + s * TILE;
+    mbar_wait(&v_full[s], (i / SM90_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<HD>(acc, pa[kk], smem_desc(vt + kk * 16 * 64, PANEL * 2, 1024));
+    wgmma_commit();
+    wgmma_wait_all();   // this PV and the next tile's scores
+    fence_regs(acc);
+    fence_regs(sn);
+
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&v_empty[s]);
+      if (i + 1 < n_tiles) mbar_arrive(&k_empty[(i + 1) % SM90_STAGES]);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = sn[e];
+  }
+
+  // Epilogue: full row sums over the quad, divide, store bf16.
+  __nv_bfloat16* op = o + ((int64_t)b * H + h) * Sq * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = (l == 0.f) ? 1.f : l;  // fully masked rows
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+      *reinterpret_cast<__nv_bfloat162*>(op + (int64_t)qi * HD + 8 * j + col0) = v;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime so that
+// the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (slabs, rows, hd) bf16 tensor read in 64 x 64 boxes, 128-byte swizzle;
+// rows past `rows` read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int slabs) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int KV, int Sq, int Sk, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, HD, Sq, B * H) || !make_map(&tk, k, HD, Sk, B * KV) ||
+      !make_map(&tv, v, HD, Sk, B * KV))
+    return cudaErrorInvalidValue;
+  const size_t smem = sm90_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fa_fwd_sm90<HD><<<(unsigned)blocks, SM90_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, H, KV, Sq, Sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), all
-// contiguous and of one type: dtype 0 is float32, 1 is bf16. head_dim is
+// The CUDA-core kernel: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o
+// (B, H, Sq, hd), all contiguous and of one type: dtype 0 is float32, 1 is bf16. head_dim is
 // 16, 32, 64 or 128 and H is a multiple of KV. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for an unsupported shape).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -264,5 +751,24 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   if (dtype == 1)
     return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
                                            scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o
+// (B, H, Sq, hd), all bf16, contiguous and 16-byte aligned; head_dim 64 or
+// 128 and H a multiple of KV. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported shape or a tensor map that
+// cuTensorMapEncodeTiled refuses, such as one at an address not 16-byte
+// aligned).
+extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
+                                              void* o, int B, int H, int KV, int Sq, int Sk,
+                                              int hd, int causal, int window, float scale,
+                                              void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return (int)launch_sm90<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+  if (hd == 128)
+    return (int)launch_sm90<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

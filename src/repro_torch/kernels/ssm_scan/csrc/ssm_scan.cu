@@ -8,24 +8,39 @@
 // y has x's type (float32 or bf16); the last h is written as float32.
 //
 // Design. The TPU kernel carries h in VMEM scratch across a sequential
-// grid axis of sequence chunks. A Hopper grid has no sequential axis, so
-// each thread owns one (batch, channel d, state n), keeps its h in a
-// register and walks the whole sequence itself; the N threads of a channel
-// are N neighbouring lanes of one warp and sum h * C over n with a
-// butterfly of warp shuffles. At the hymba-1.5b serving shape (B 4, Di
-// 3200, N 16) that is 204,800 threads, enough to fill the card, and the
-// loads of step t+1 are issued before step t's arithmetic. x, dt, B_ and C
-// are read once from device memory (the lanes of a channel share each x
-// and dt load), y and the last h written once. Any S and any Di work: the
-// grid covers Di with a ragged last block whose spare lanes run the loop
-// on a clamped channel and store nothing. N must be a power of two <= 32.
+// grid axis of sequence chunks and stages (chunk, block_d) tiles of x and
+// dt in VMEM. Here a block owns CH consecutive channels of one batch row
+// and walks the sequence itself in chunks of T steps. Each chunk's x and dt
+// (T x CH) and B_ and C (T x N) are copied into shared memory with 16-byte
+// cp.async, double-buffered, so chunk k+1 is in flight while chunk k runs
+// and every row of a copy is CH contiguous channels (128 bytes of bf16 x at
+// CH 64). Each thread owns one channel and N / TPC of its states in
+// registers (TPC = min(N, 4) threads per channel): the states are
+// independent recurrences, and the sum over n takes a shuffle of at most
+// two levels. Steps run in groups of U: the group's operands are read
+// first and its y written last, so one step's expf, FMAs and shuffles
+// overlap the next's (a shared-memory store between steps would order
+// every later load after it). y of the chunk is written into x's slot in
+// shared memory (same type) and copied out coalesced.
+// The staged copies need Di % 8 == 0, N % 4 == 0 and 16-byte aligned
+// tensors (the serving shapes); any other S, Di or N takes the same
+// recurrence with element-wise synchronous copies. Any S and any Di work:
+// the last block's spare channels and the last chunk's spare steps are
+// computed on but never stored.
 //
 // Bound. Per launch the function must move x, dt, y, B_, C, A, D and the
-// last h: 53.5 MB at the serving shape, 16 us at 3.35 TB/s; its ~0.7 GFLOP
-// take 10.5 us at 67 TFLOP/s, so bytes bound it. It also takes one expf
-// per (b, t, d, n), 104.9 M at that shape, which the special-function
-// units cannot issue in much under 30 us. Compile without
-// --use_fast_math: the plain version uses IEEE expf.
+// last h: 53.7 MB at the hymba-1.5b serving shape (B 4, S 512, Di 3200,
+// N 16, x bf16), 16 us at 3.35 TB/s; its ~0.75 GFLOP take 11 us at
+// 67 TFLOP/s, so bytes bound it. It also takes one expf per (b, t, d, n),
+// 104.9 M at that shape, which the special-function units cannot issue in
+// under 25 us. On an H100 (700 W) it takes about 0.093 ms there
+// (chip_smoke.py). Block shapes from 16 to 128 channels and chunks of 32
+// to 64 steps time about the same, so neither the copies nor the spread of
+// blocks over SMs holds it back. The instructions do: about a dozen per
+// (b, t, d, n) with the IEEE expf, from 12 warps per SM, which hide only
+// part of a step's dependent expf, FMA and shuffle latency; grouping the
+// steps (U) is what hid most of it. Compile without --use_fast_math: the
+// plain version uses IEEE expf.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,86 +48,271 @@
 
 namespace {
 
-constexpr int NT = 128;
+constexpr int CH = 64;    // channels per block
+constexpr int T = 64;     // steps per staged chunk
+constexpr int U = 8;      // steps whose loads are issued together
+static_assert(CH % 8 == 0 && T % 4 == 0, "CH must be a multiple of 8, T of 4");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T, int N>
-__global__ void __launch_bounds__(NT)
-ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ a, const float* __restrict__ dskip,
-                const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ h_last, int S, int Di) {
-  constexpr int CH = NT / N;                    // channels per block
-  const int n = threadIdx.x % N;
-  const int d = blockIdx.x * CH + threadIdx.x / N;
-  const int b = blockIdx.y;
-  const bool live = d < Di;
-  const int dd = live ? d : Di - 1;             // spare lanes shadow the last channel
-
-  const float an = a[(int64_t)dd * N + n];
-  const float dk = dskip[dd];
-  const int64_t hidx = ((int64_t)b * Di + dd) * N + n;
-  float h = h0 != nullptr ? h0[hidx] : 0.f;
-
-  const int64_t xbase = (int64_t)b * S * Di + dd;   // + t * Di
-  const int64_t bbase = (int64_t)b * S * N + n;     // + t * N
-  float xn = 0.f, dtn = 0.f, bn = 0.f, cn = 0.f;
-  if (S > 0) {
-    xn = to_f32(x[xbase]);
-    dtn = dt[xbase];
-    bn = bm[bbase];
-    cn = cm[bbase];
-  }
-  for (int t = 0; t < S; ++t) {
-    const float xt = xn, dtt = dtn, bt = bn, ct = cn;
-    if (t + 1 < S) {
-      const int64_t xo = xbase + (int64_t)(t + 1) * Di;
-      const int64_t bo = bbase + (int64_t)(t + 1) * N;
-      xn = to_f32(x[xo]);
-      dtn = dt[xo];
-      bn = bm[bo];
-      cn = cm[bo];
-    }
-    const float abar = expf(dtt * an);
-    h = abar * h + (dtt * xt) * bt;
-    float p = h * ct;
-#pragma unroll
-    for (int off = N / 2; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-    if (live && n == 0) store(y + xbase + (int64_t)t * Di, p + dk * xt);
-  }
-  if (live) h_last[hidx] = h;
+template <typename Tx> __device__ __forceinline__ Tx from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
-template <typename T, int N>
-cudaError_t launch_n(const void* x, const void* dt, const void* bm, const void* cm,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+template <int N>
+struct Split {
+  static constexpr int TPC = N < 4 ? N : 4;   // threads per channel
+  static constexpr int SPT = N / TPC;         // states per thread
+};
+
+template <typename Tx, int N>
+__host__ __device__ constexpr int stage_bytes() {
+  return T * CH * (int)sizeof(Tx) + T * CH * 4 + 2 * T * N * 4;
+}
+
+// One staged chunk: x and dt as (T, CH), B_ and C as (T, N).
+template <typename Tx, int N>
+struct Stage {
+  Tx* x;
+  float* dt;
+  float* b;
+  float* c;
+  __device__ Stage(unsigned char* base)
+      : x(reinterpret_cast<Tx*>(base)),
+        dt(reinterpret_cast<float*>(base + T * CH * sizeof(Tx))),
+        b(reinterpret_cast<float*>(base + T * CH * (sizeof(Tx) + 4))),
+        c(reinterpret_cast<float*>(base + T * CH * (sizeof(Tx) + 4) + T * N * 4)) {}
+};
+
+// Copy steps [t0, t0 + len) of the block's channels [d0, d0 + nch) into a
+// stage: 16-byte cp.async when VEC, else element-wise loads.
+template <typename Tx, int N, bool VEC>
+__device__ __forceinline__ void load_chunk(const Stage<Tx, N>& st, const Tx* __restrict__ x,
+                                           const float* __restrict__ dt,
+                                           const float* __restrict__ bm,
+                                           const float* __restrict__ cm, int64_t row0, int len,
+                                           int Di, int d0, int nch) {
+  constexpr int NT = CH * Split<N>::TPC;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int XV = CH * (int)sizeof(Tx) / 16, DV = CH / 4, BV = N / 4;
+    const int xv = nch * (int)sizeof(Tx) / 16, dv = nch / 4;
+    for (int e = tid; e < len * XV; e += NT) {
+      const int r = e / XV, v = e % XV;
+      if (v < xv) cp_async16(st.x + r * CH + v * (16 / sizeof(Tx)),
+                             x + (row0 + r) * Di + d0 + v * (16 / sizeof(Tx)));
+    }
+    for (int e = tid; e < len * DV; e += NT) {
+      const int r = e / DV, v = e % DV;
+      if (v < dv) cp_async16(st.dt + r * CH + 4 * v, dt + (row0 + r) * Di + d0 + 4 * v);
+    }
+    for (int e = tid; e < len * BV; e += NT) {
+      const int r = e / BV, v = e % BV;
+      cp_async16(st.b + r * N + 4 * v, bm + (row0 + r) * N + 4 * v);
+      cp_async16(st.c + r * N + 4 * v, cm + (row0 + r) * N + 4 * v);
+    }
+  } else {
+    for (int e = tid; e < len * CH; e += NT) {
+      const int r = e / CH, c = e % CH;
+      const bool in = c < nch;
+      st.x[r * CH + c] = in ? x[(row0 + r) * Di + d0 + c] : from_f32<Tx>(0.f);
+      st.dt[r * CH + c] = in ? dt[(row0 + r) * Di + d0 + c] : 0.f;
+    }
+    for (int e = tid; e < len * N; e += NT) {
+      st.b[e] = bm[row0 * N + e];
+      st.c[e] = cm[row0 * N + e];
+    }
+  }
+  cp_async_commit();
+}
+
+// SPT floats of shared memory (16-byte aligned when SPT % 4 == 0).
+template <int SPT>
+__device__ __forceinline__ void load_states(float (&v)[SPT], const float* p) {
+  if constexpr (SPT % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < SPT; j += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + j);
+      v[j] = f.x, v[j + 1] = f.y, v[j + 2] = f.z, v[j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) v[j] = p[j];
+  }
+}
+
+// U steps of the recurrence from a staged chunk, for one channel and SPT
+// states. The group's operands are read before anything is written and
+// its y written last, so the steps' expf, FMAs and shuffles can overlap
+// (a shared-memory store between steps would order every load after it).
+// y replaces x in its slot; the per-step arithmetic is the same for any U.
+template <int U, typename Tx, int N>
+__device__ __forceinline__ void scan_steps(const Stage<Tx, N>& st, int t, int cl, int part,
+                                           int n0, const float (&an)[Split<N>::SPT],
+                                           float (&h)[Split<N>::SPT], float dk) {
+  constexpr int TPC = Split<N>::TPC, SPT = Split<N>::SPT;
+  float xr[U], dr[U], p[U], bv[U][SPT], cv[U][SPT];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    xr[u] = to_f32(st.x[(t + u) * CH + cl]);
+    dr[u] = st.dt[(t + u) * CH + cl];
+    load_states<SPT>(bv[u], st.b + (t + u) * N + n0);
+    load_states<SPT>(cv[u], st.c + (t + u) * N + n0);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float dtx = dr[u] * xr[u];
+    p[u] = 0.f;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const float abar = expf(dr[u] * an[j]);
+      h[j] = fmaf(abar, h[j], dtx * bv[u][j]);
+      p[u] = fmaf(h[j], cv[u][j], p[u]);
+    }
+  }
+#pragma unroll
+  for (int off = TPC / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
+  if (part == 0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) st.x[(t + u) * CH + cl] = from_f32<Tx>(fmaf(dk, xr[u], p[u]));
+  }
+}
+
+template <typename Tx, int N, bool VEC>
+__global__ void __launch_bounds__(CH * Split<N>::TPC)
+ssm_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ bm, const float* __restrict__ cm,
+                const float* __restrict__ a, const float* __restrict__ dskip,
+                const float* __restrict__ h0, Tx* __restrict__ y,
+                float* __restrict__ h_last, int S, int Di) {
+  constexpr int TPC = Split<N>::TPC, SPT = Split<N>::SPT, NT = CH * TPC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int SB = stage_bytes<Tx, N>();
+
+  const int tid = threadIdx.x;
+  const int cl = tid / TPC, part = tid % TPC;    // local channel, state group
+  const int d0 = blockIdx.x * CH, b = blockIdx.y;
+  const int nch = min(CH, Di - d0);              // live channels of the block
+  const bool live = cl < nch;
+  const int dd = live ? d0 + cl : Di - 1;        // spare threads shadow the last channel
+  const int n0 = part * SPT;
+
+  float an[SPT], h[SPT];
+  const int64_t hidx = ((int64_t)b * Di + dd) * N + n0;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    an[j] = a[(int64_t)dd * N + n0 + j];
+    h[j] = h0 != nullptr ? h0[hidx + j] : 0.f;
+  }
+  const float dk = dskip[dd];
+
+  const int n_chunks = (S + T - 1) / T;
+  const int64_t row_b = (int64_t)b * S;
+  load_chunk<Tx, N, VEC>(Stage<Tx, N>(smem), x, dt, bm, cm, row_b, min(T, S), Di, d0, nch);
+  for (int k = 0; k < n_chunks; ++k) {
+    const Stage<Tx, N> st(smem + (k & 1) * SB);
+    const int t0 = k * T, len = min(T, S - t0);
+    if (k + 1 < n_chunks) {
+      const Stage<Tx, N> next(smem + ((k + 1) & 1) * SB);
+      load_chunk<Tx, N, VEC>(next, x, dt, bm, cm, row_b + t0 + T, min(T, S - t0 - T), Di, d0,
+                             nch);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // The recurrence over the chunk, U steps at a time; y replaces x.
+    int t = 0;
+    for (; t + U <= len; t += U) scan_steps<U>(st, t, cl, part, n0, an, h, dk);
+    for (; t < len; ++t) scan_steps<1>(st, t, cl, part, n0, an, h, dk);
+    __syncthreads();
+
+    // Coalesced copy of the chunk's y.
+    const int64_t row0 = row_b + t0;
+    if constexpr (VEC) {
+      constexpr int XV = CH * (int)sizeof(Tx) / 16, EPV = 16 / (int)sizeof(Tx);
+      const int xv = nch / EPV;
+      for (int e = tid; e < len * XV; e += NT) {
+        const int r = e / XV, v = e % XV;
+        if (v < xv)
+          *reinterpret_cast<uint4*>(y + (row0 + r) * Di + d0 + v * EPV) =
+              *reinterpret_cast<const uint4*>(st.x + r * CH + v * EPV);
+      }
+    } else {
+      for (int e = tid; e < len * CH; e += NT) {
+        const int r = e / CH, c = e % CH;
+        if (c < nch) y[(row0 + r) * Di + d0 + c] = st.x[r * CH + c];
+      }
+    }
+    __syncthreads();  // the next chunk's copy reuses this stage
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) h_last[hidx + j] = h[j];
+  }
+}
+
+template <typename Tx, int N, bool VEC>
+cudaError_t launch_v(const void* x, const void* dt, const void* bm, const void* cm,
                      const void* a, const void* dskip, const void* h0, void* y, void* h_last,
                      int B, int S, int Di, cudaStream_t stream) {
-  constexpr int CH = NT / N;
+  const int smem = 2 * stage_bytes<Tx, N>();
+  cudaError_t err = cudaFuncSetAttribute(ssm_scan_kernel<Tx, N, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Di + CH - 1) / CH), (unsigned)B);
-  ssm_scan_kernel<T, N><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
+  ssm_scan_kernel<Tx, N, VEC><<<grid, CH * Split<N>::TPC, smem, stream>>>(
+      static_cast<const Tx*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<const float*>(dskip),
-      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(h_last), S, Di);
+      static_cast<const float*>(h0), static_cast<Tx*>(y), static_cast<float*>(h_last), S, Di);
   return cudaGetLastError();
 }
 
-template <typename T>
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename Tx, int N>
+cudaError_t launch_n(const void* x, const void* dt, const void* bm, const void* cm,
+                     const void* a, const void* dskip, const void* h0, void* y, void* h_last,
+                     int B, int S, int Di, cudaStream_t s) {
+  if constexpr (N % 4 == 0) {
+    if (Di % 8 == 0 && aligned16(x) && aligned16(dt) && aligned16(bm) && aligned16(cm) &&
+        aligned16(y))
+      return launch_v<Tx, N, true>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+  }
+  return launch_v<Tx, N, false>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+}
+
+template <typename Tx>
 cudaError_t launch(const void* x, const void* dt, const void* bm, const void* cm,
                    const void* a, const void* dskip, const void* h0, void* y, void* h_last,
                    int B, int S, int Di, int N, cudaStream_t s) {
   switch (N) {
-    case 1: return launch_n<T, 1>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 2: return launch_n<T, 2>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 4: return launch_n<T, 4>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 8: return launch_n<T, 8>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 16: return launch_n<T, 16>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 32: return launch_n<T, 32>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 1: return launch_n<Tx, 1>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 2: return launch_n<Tx, 2>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 4: return launch_n<Tx, 4>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 8: return launch_n<Tx, 8>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 16: return launch_n<Tx, 16>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    case 32: return launch_n<Tx, 32>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -121,8 +321,8 @@ cudaError_t launch(const void* x, const void* dt, const void* bm, const void* cm
 
 // x and y (B, S, Di) of one type, dtype 0 float32 or 1 bf16; dt (B, S, Di),
 // b and c (B, S, N), a (Di, N), d (Di,), h0 (B, Di, N) or null, h_last
-// (B, Di, N): all float32 and contiguous. Returns cudaGetLastError() after
-// the launch.
+// (B, Di, N): all float32 and contiguous. N is 1, 2, 4, 8, 16 or 32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int repro_ssm_scan_fwd(const void* x, const void* dt, const void* b, const void* c,
                                   const void* a, const void* d, const void* h0, void* y,
                                   void* h_last, int B, int S, int Di, int N, int dtype,

@@ -7,7 +7,8 @@ fixture decides at run time). On a machine with the card:
 
 builds the kernels (``nvcc``, ``sm_90a``) and holds each against its plain
 version on the same inputs: flash attention to 1e-5 in float32 and 2.5e-2
-in bf16 (the reference tests' bounds), block delta with q equal as int8,
+in bf16 (the reference tests' bounds; bf16 at head_dim 64 and 128 runs the
+tensor-core kernel, the rest the CUDA-core one), block delta with q equal as int8,
 scale equal and norm2 to rtol 1e-5 (sums in another order), the selective
 scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
 and to 2e-4 on the last state.
@@ -80,6 +81,48 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, KV, hd, causal, window, dtype
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err < TOL[dtype], err
+
+
+SM90_GROUPS = [(2, 2), (4, 2), (10, 2), (12, 2)]     # H, KV: groups 1, 2, 5, 6
+SM90_MASKS = [(True, 0), (False, 0), (True, 128), (True, 256), (False, 128)]
+
+
+@pytest.mark.parametrize("causal,window", SM90_MASKS)
+@pytest.mark.parametrize("H,KV", SM90_GROUPS)
+@pytest.mark.parametrize("S", [1, 40, 384, 520])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_sm90_kernel_matches_plain(cuda, hd, S, H, KV, causal, window):
+    """The tensor-core kernel (bf16, hd 64/128) at ragged lengths, GQA groups
+    and masks, against the plain version to the bf16 bound."""
+    g = torch.Generator(device=cuda).manual_seed(S * 131 + H)
+    q = torch.randn(2, H, S, hd, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, KV, S, hd, generator=g, device=cuda).bfloat16()
+    v = torch.randn(2, KV, S, hd, generator=g, device=cuda).bfloat16()
+    before = fa_ops.flash_attention.launches_sm90
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches_sm90 == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err < TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+])
+def test_flash_launch_goes_to_the_kernel_of_its_type(cuda, dtype, hd, kernel):
+    q = torch.randn(1, 4, 128, hd, device=cuda).to(dtype)
+    k = torch.randn(1, 2, 128, hd, device=cuda).to(dtype)
+    fa = fa_ops.flash_attention
+    before = (fa.launches, fa.launches_sm90, fa.launches_simt)
+    fa(q, k, k)
+    torch.cuda.synchronize()
+    after = (fa.launches, fa.launches_sm90, fa.launches_simt)
+    sm90 = int(kernel == "sm90")
+    assert after == (before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
 
 
 def test_flash_kernel_refuses_unsupported_head_dim(cuda):
@@ -166,6 +209,58 @@ def test_ssm_scan_kernel_continues_from_h0(cuda):
     y2, h2 = scan_ops.selective_scan(x[:, 40:], dt[:, 40:], b[:, 40:], c[:, 40:], a, d, h0=h1)
     torch.cuda.synchronize()
     assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("Di", [48, 3216])
+@pytest.mark.parametrize("S", [1, 63, 65, 520])
+def test_ssm_scan_staged_chunks_match_plain(cuda, S, Di, N, with_h0):
+    """Sequence lengths around the 64-step chunk and channel counts around
+    the 64-channel block, from a zero or a given state, x bf16 as served."""
+    x, dt, b, c, a_log, d = _scan_inputs(2, S, Di, N, cuda, seed=S + Di)
+    x = x.bfloat16()
+    a = -torch.exp(a_log)
+    h0 = 0.5 * torch.randn(2, Di, N, device=cuda) if with_h0 else None
+    y, h = scan_ops.selective_scan(x, dt, b, c, a, d, h0=h0)
+    torch.cuda.synchronize()
+    yr, hr = selective_scan_ref(x, dt, b, c, a, d, h0=h0)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape and h.shape == (2, Di, N)
+    assert _bf16_y_close(y, yr)
+    assert float((h - hr).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize("kernel", ["flash_qwen2", "flash_hymba", "scan_hymba"])
+def test_chip_smoke_serving_shapes_match_plain(cuda, kernel):
+    """The serving-shape cases of chip_smoke.py with its inputs and bounds:
+    flash at qwen2-1.5b (B 4, S 512, H 12, KV 2, hd 128) and hymba-1.5b
+    (H 25, KV 5, hd 64, window 2048), bf16, causal; the scan at hymba-1.5b
+    (B 4, S 512, Di 3200, N 16) with x bf16 and A from bf16-rounded A_log."""
+    if kernel.startswith("flash"):
+        B, S, H, KV, hd, window = ((4, 512, 12, 2, 128, 0) if kernel == "flash_qwen2"
+                                   else (4, 512, 25, 5, 64, 2048))
+        g = torch.Generator(device=cuda).manual_seed(7)
+        q, k, v = (torch.randn(B, n, S, hd, generator=g, device=cuda).bfloat16()
+                   for n in (H, KV, KV))
+        got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        want = attention_ref(q, k, v, causal=True, window=window)
+        assert float((got.float() - want.float()).abs().max()) < TOL[torch.bfloat16]
+        return
+    x, dt, b, c, a_log, d = _scan_inputs(4, 512, 3200, 16, cuda, seed=9)
+    a = -torch.exp(a_log.bfloat16().float())
+    x = x.bfloat16()
+    y, h = scan_ops.selective_scan(x, dt, b, c, a, d)
+    yr, hr = selective_scan_ref(x, dt, b, c, a, d)
+    assert _bf16_y_close(y, yr)
+    assert float((h - hr).abs().max()) < 2e-4
+
+
+def _bf16_y_close(y, yr) -> bool:
+    """bf16 y within 1e-1 of the plain version, or one bf16 ulp of a larger
+    value (chip_smoke.py's serving-shape check)."""
+    diff = (y.float() - yr.float()).abs()
+    return float(diff.max()) < SCAN_TOL[torch.bfloat16] or \
+        float((diff - yr.float().abs() * 2.0 ** -7).max()) <= 0
 
 
 def test_ssm_scan_kernel_refuses_unsupported_state_size(cuda):

@@ -67,6 +67,17 @@ def test_cpu_wrapper_never_launches():
     assert ops.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype,hd,sm90", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+])
+def test_kernel_choice_by_dtype_and_head_dim(dtype, hd, sm90):
+    """bf16 at head_dim 64 or 128 goes to the tensor-core kernel; float32
+    keeps the CUDA-core kernel, whose sums meet the 1e-5 bound."""
+    assert ops.uses_sm90(dtype, hd) is sm90
+
+
 def test_kernel_launcher_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a).transpose(1, 2) for a in _qkv(1, 64, 2, 1, 16))
     with pytest.raises(ValueError):
