@@ -16,9 +16,12 @@ non-zero at the first failure:
      2048; causal, bf16); kernel, plain and ``scaled_dot_product_attention``
      times, and the model-level ``attention()`` from (B, S, H, hd) inputs,
      which adds the layout copies around the kernel;
-  4. block delta: the kernel against its plain version at the shapes of
-     the float32 leaves it sees on each serving path (8 of qwen2-1.5b, 18
-     of hymba-1.5b); times;
+  4. block delta: both kernels (the cluster kernel and the two-pass one)
+     against the plain version on rows of special values (NaN, +-inf, -0,
+     subnormal); the cluster kernel against the plain version on the
+     float32 leaves each serving path passes it, flat and ragged (8 of
+     qwen2-1.5b, 18 of hymba-1.5b); times of both kernels, eager and as a
+     CUDA graph, and of the plain version;
   5. selective scan: the kernel against its plain version at the JAX
      kernel tests' cases in float32 and bf16 and at the hymba-1.5b serving
      shape (B 4, S 512, Di 3200, N 16, x bf16; y and the last state);
@@ -31,7 +34,8 @@ non-zero at the first failure:
      hybrid layers, 1.66 G): publish, refresh, serve 4 x 512-token prompts
      plus 32 greedy tokens, in-place delta publish, refresh, serve; launch
      counts set to 0 before each run and read after it (every bf16 prefill
-     attention must go to the tensor-core kernel), and its results
+     attention must go to the tensor-core kernel, every block delta to the
+     cluster kernel), the seconds of dirty detection, and its results
      checked;
   8. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
@@ -41,9 +45,8 @@ non-zero at the first failure:
      hymba-1.5b shape for the selective scan. ``ms``, ``plain_ms`` and
      ``library_ms`` are eager times per call, which include the wrappers'
      host work; ``device_ms`` and ``library_device_ms`` are device times of
-     the flash and scan calls and of SDPA (20 calls captured in a CUDA
-     graph, replayed), null for block delta, whose eager time is already
-     its device time.
+     the kernel calls and of SDPA (20 calls, 5 per block-delta leaf,
+     captured in a CUDA graph and replayed).
 
 Without a CUDA device, or outside a checkout, it exits 1 and prints no
 result line. The kernels build into ``build/kernels`` of the checkout.
@@ -245,30 +248,91 @@ def flash_phase(torch, fa_ops, attention_ref):
     return entry
 
 
-def block_delta_phase(torch, bd_ops, block_delta_ref, leaf_numels, block_elems, tag):
-    total_ms = total_plain = total_bytes = total_ops = 0.0
+def block_delta_special_check(torch, bd_ops, block_delta_flat_ref):
+    """Both block-delta kernels against the plain version on rows with NaN,
+    +-inf, inf - inf, a zero-sign flip, a scale that flushes to 0, subnormal
+    deltas, a NaN payload change and a clean row, in float32 (65,536) and
+    bf16 (131,072): q, scale and the dirty flag equal, norm2 at rtol 1e-5
+    with NaN equal."""
+    for dtype, be in ((torch.float32, 65536), (torch.bfloat16, 131072)):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        old = torch.randn(10, be, generator=g, device="cuda")
+        new = old + 0.01 * torch.randn(10, be, generator=g, device="cuda")
+        new[1, 17] = float("nan")
+        new[2, 5] = float("inf")
+        new[3, 9] = -float("inf")
+        old[4, 0] = new[4, 0] = float("inf")
+        new[4, 1] = -float("inf")
+        old[5] = new[5] = 0.0
+        new[5, 3] = -0.0
+        old[6] = 0.0
+        new[6] = torch.randn(be, generator=g, device="cuda") * 1e-38
+        old[7] = 0.0
+        new[7] = torch.randn(be, generator=g, device="cuda") * 1e-39
+        old[8] = 0.0
+        old[8, 2] = float("nan")
+        new[8] = old[8]
+        old[9] = new[9]
+        new, old = new.to(dtype).reshape(-1), old.to(dtype).reshape(-1)
+        new.view(torch.int32 if dtype == torch.float32 else torch.int16)[8 * be + 2] += 3
+        want = block_delta_flat_ref(new, old, be)
+        check(want[3].tolist() == [True] * 9 + [False], "block_delta special rows: plain flag")
+        for kernel in ("cluster", "two_pass"):
+            got = bd_ops.block_delta_flat(new, old, be, kernel=kernel)
+            tag = f"block_delta {kernel} special rows {dtype}"
+            check(torch.equal(got[0], want[0]), f"{tag}: q differs")
+            check(torch.equal(got[2], want[2]), f"{tag}: scale differs")
+            check(torch.equal(got[3], want[3]), f"{tag}: dirty flag differs")
+            a, b = got[1].cpu().double(), want[1].cpu().double()
+            same = (a == b) | (a.isnan() & b.isnan()) | ((a - b).abs() <= 1e-5 * b.abs())
+            check(bool(same.all()), f"{tag}: norm2 {a.tolist()} vs {b.tolist()}")
+        del new, old, want, got
+    phase("block_delta", "special rows (NaN, +-inf, inf - inf, -0, flushed scale, subnormal "
+                         "deltas, NaN payload, clean) in float32 and bf16: cluster and two-pass "
+                         "kernels equal the plain version (q, scale, flag; norm2 NaN-equal)")
+
+
+def block_delta_phase(torch, bd_ops, block_delta_flat_ref, leaf_numels, block_elems, tag):
+    """Each float32 leaf of at least one row, flat and ragged as the serving
+    path passes it: the kernel of the route (the cluster kernel, checked by
+    its counter) against the plain version, then per-leaf times summed over
+    the leaves: the cluster kernel eager and as a CUDA graph, the two-pass
+    kernel the same way (this call's yardstick), the plain version eager."""
+    total = dict(ms=0.0, device_ms=0.0, two_pass_ms=0.0, two_pass_device_ms=0.0, plain_ms=0.0)
+    total_bytes = total_ops = 0.0
     worst_norm = worst_abs = 0.0
     for i, n in enumerate(leaf_numels):
-        nb = -(-n // block_elems)           # the serving path pads the last block
+        nb = -(-n // block_elems)
         g = torch.Generator(device="cuda").manual_seed(100 + i)
-        new = torch.randn(nb, block_elems, generator=g, device="cuda")
-        old = new + 0.01 * torch.randn(nb, block_elems, generator=g, device="cuda")
-        old[:: max(1, nb // 3)] = new[:: max(1, nb // 3)]      # some clean blocks
-        qk, nk, sk = bd_ops.block_delta(new, old)
-        qr, nr, sr = block_delta_ref(new, old)
+        new = torch.randn(n, generator=g, device="cuda")
+        old = new + 0.01 * torch.randn(n, generator=g, device="cuda")
+        step = max(1, nb // 3) * block_elems
+        for r0 in range(0, n, step):                     # some clean rows
+            old[r0:r0 + block_elems] = new[r0:r0 + block_elems]
+        before = bd_ops.block_delta.launches_cluster
+        qk, nk, sk, dk = bd_ops.block_delta_flat(new, old, block_elems)
+        check(bd_ops.block_delta.launches_cluster == before + 1,
+              f"block_delta leaf {i}: the serving row did not go to the cluster kernel")
+        qr, nr, sr, dr = block_delta_flat_ref(new, old, block_elems)
         check(torch.equal(qk, qr), f"block_delta leaf {i}: int8 q differs")
         check(torch.equal(sk, sr), f"block_delta leaf {i}: scale differs")
+        check(torch.equal(dk, dr), f"block_delta leaf {i}: dirty flag differs")
         rel = float(((nk - nr).abs() / nr.abs().clamp_min(1e-30)).max())
         check(rel <= 1e-5, f"block_delta leaf {i}: norm2 rel err {rel}")
         worst_norm = max(worst_norm, rel)
-        # largest absolute difference over all three outputs of the kernel
+        # largest absolute difference over the kernel's outputs
         worst_abs = max(worst_abs, float((qk.int() - qr.int()).abs().max()),
-                        float((sk - sr).abs().max()), float((nk - nr).abs().max()))
-        del qk, nk, sk, qr, nr, sr
-        total_ms += time_ms(lambda: bd_ops.block_delta(new, old), iters=5, warmup=1)
-        total_plain += time_ms(lambda: block_delta_ref(new, old), iters=3, warmup=1)
-        total_bytes += 9 * nb * block_elems + 8 * nb
-        total_ops += 6 * nb * block_elems
+                        float((sk - sr).abs().max()), float((nk - nr).abs().max()),
+                        float((dk.int() - dr.int()).abs().max()))
+        del qk, nk, sk, dk, qr, nr, sr, dr
+        for key, kernel in (("", "cluster"), ("two_pass_", "two_pass")):
+            call = lambda: bd_ops.block_delta_flat(new, old, block_elems, kernel=kernel)  # noqa: E731
+            total[key + "ms"] += time_ms(call, iters=5, warmup=1)
+            total[key + "device_ms"] += time_ms(call, iters=5, warmup=1, graph=True)
+        total["plain_ms"] += time_ms(lambda: block_delta_flat_ref(new, old, block_elems),
+                                     iters=3, warmup=1)
+        total_bytes += 8 * n + nb * block_elems + 9 * nb
+        total_ops += 6 * n
         del new, old
         torch.cuda.empty_cache()
     t_bytes, t_ops = total_bytes / PEAK_BYTES, total_ops / PEAK_F32_FLOPS
@@ -276,17 +340,20 @@ def block_delta_phase(torch, bd_ops, block_delta_ref, leaf_numels, block_elems, 
         "name": "block_delta", "route": "cuda",
         "source": "src/repro_torch/kernels/block_delta/csrc/block_delta.cu",
         "replaces": "src/repro/kernels/block_delta/kernel.py:36",
-        "max_abs_err": worst_abs, "ms": total_ms, "device_ms": None, "plain_ms": total_plain,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "max_abs_err": worst_abs, "ms": total["ms"], "device_ms": total["device_ms"],
+        "plain_ms": total["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "library_device_ms": None,
     }
+    share = entry["bound_ms"] / total["ms"]
     phase("block_delta", f"{tag}: {len(leaf_numels)} leaves, {sum(leaf_numels) / 1e9:.3f} G "
-                         f"float32 "
-                         f"in {block_elems}-element rows: q and scale equal, norm2 rel err "
-                         f"{worst_norm:.2e}, max abs err {worst_abs:.3e}; kernel "
-                         f"{total_ms:.3f} ms, plain "
-                         f"{total_plain:.3f} ms, bound {entry['bound_ms']:.3f} ms "
+                         f"float32 in {block_elems}-element rows, all on the cluster kernel: "
+                         f"q, scale and flag equal, norm2 rel err {worst_norm:.2e}, max abs err "
+                         f"{worst_abs:.3e}; cluster kernel {total['ms']:.3f} ms eager, "
+                         f"{total['device_ms']:.3f} ms device (CUDA graph), {share:.1%} of the "
+                         f"bound; two-pass kernel {total['two_pass_ms']:.3f} ms eager, "
+                         f"{total['two_pass_device_ms']:.3f} ms device; plain "
+                         f"{total['plain_ms']:.3f} ms; bound {entry['bound_ms']:.3f} ms "
                          f"({total_bytes / 1e9:.2f} GB)")
     return entry
 
@@ -470,10 +537,12 @@ def full_width_phase(torch, serve, M, counters, bridge, exact_dirty_blocks,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    fa = counters["flash_attention"]
+    fa, bd = counters["flash_attention"], counters["block_delta"]
     split = {"sm90": fa.launches_sm90, "simt": fa.launches_simt}
+    bd_split = {"cluster": bd.launches_cluster, "two_pass": bd.launches_two_pass}
     phase("serve", f"{cfg.name}: {cfg.param_count()} params, run {wall:.1f} s; launches "
-                   f"{launches}; flash_attention by kernel {split}")
+                   f"{launches}; flash_attention by kernel {split}; block_delta by kernel "
+                   f"{bd_split}")
     on_path = {"flash_attention": cfg.has_attention, "block_delta": True,
                "ssm_scan": cfg.has_ssm}
     for name, used in on_path.items():
@@ -484,6 +553,11 @@ def full_width_phase(torch, serve, M, counters, bridge, exact_dirty_blocks,
     check(split == {"sm90": want_sm90, "simt": 0},
           f"{cfg.name}: flash launches by kernel {split}, want all {want_sm90} on the "
           f"tensor-core kernel")
+    # one delta publish, one launch per float32 leaf of at least one block
+    want_bd = sum(1 for d in M.param_defs(cfg) if math.prod(d.shape) >= serve.BLOCK_BYTES // 4)
+    check(bd_split == {"cluster": want_bd, "two_pass": 0},
+          f"{cfg.name}: block_delta launches by kernel {bd_split}, want all {want_bd} on the "
+          f"cluster kernel")
 
     for tag, (logits, toks) in (("v0", run.out_v0), ("v1", run.out_v1)):
         check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -532,7 +606,9 @@ def full_width_phase(torch, serve, M, counters, bridge, exact_dirty_blocks,
     check(n_dirty == written and n_dirty > 0, f"dirty {n_dirty} != blocks_written {written}")
     phase("serve", f"delta publish: kernel dirty set == exact byte compare == blocks_written "
                    f"({n_dirty} of {run.publish_v0.stats['blocks_written']} blocks; "
-                   f"{', '.join(f'{k}:{len(v)}' for k, v in dirty.items() if v)})")
+                   f"{', '.join(f'{k}:{len(v)}' for k, v in dirty.items() if v)}); dirty "
+                   f"detection {run.publish_v1.detect_seconds:.4f} s of the "
+                   f"{run.publish_v1.seconds:.3f} s publish")
 
     host = dict(flatten_with_names(sl.server.params))
     dev = bridge.flat_tensors({"params": served})
@@ -592,7 +668,7 @@ def main() -> int:
     from repro_torch.core.tensorstate import flatten_with_names
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_delta import ops as bd_ops
-    from repro_torch.kernels.block_delta.ref import block_delta_ref
+    from repro_torch.kernels.block_delta.ref import block_delta_flat_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -624,10 +700,11 @@ def main() -> int:
 
         block_elems = serve.BLOCK_BYTES // 4
         entries = {"flash_attention": flash_phase(torch, fa_ops, attention_ref)}
+        block_delta_special_check(torch, bd_ops, block_delta_flat_ref)
         for cfg in paths:
             leaf_numels = [math.prod(d.shape) for d in M.param_defs(cfg)
                            if math.prod(d.shape) >= block_elems]
-            delta = block_delta_phase(torch, bd_ops, block_delta_ref, leaf_numels,
+            delta = block_delta_phase(torch, bd_ops, block_delta_flat_ref, leaf_numels,
                                       block_elems, cfg.name)
             entries.setdefault("block_delta", delta)
         entries["ssm_scan"] = scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref)

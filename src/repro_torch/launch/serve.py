@@ -119,6 +119,7 @@ class PublishInfo:
     stats: Dict[str, int]                       # TensorStore.save stats
     dirty: Optional[Dict[str, List[int]]]       # per-leaf mask (None: full)
     seconds: float
+    detect_seconds: float                       # dirty detection, synchronized
 
 
 class ServeSlice:
@@ -153,6 +154,8 @@ class ServeSlice:
                 idx = dirty_block_indices(new, old[name], self.block_bytes)
                 if idx is not None:
                     dirty[name] = idx
+            _sync(self.device)
+        detect = time.perf_counter() - t0
         host = params_to_numpy(tree)
         stats: Dict[str, int] = {}
 
@@ -167,7 +170,7 @@ class ServeSlice:
             self.server = SnapshotServer(LocalServer(self.backend), self._decode_fn,
                                          _structure(tree), root=ROOT, name=NAME)
         return PublishInfo(self.backend.latest_ts, stats, dirty,
-                           time.perf_counter() - t0)
+                           time.perf_counter() - t0, detect)
 
     def refresh(self) -> int:
         return self.server.refresh()
@@ -241,6 +244,7 @@ def run(
     timed("refresh_v1", sl.refresh)
     out1 = timed("serve_v1", sl.serve, prompts)
     secs["publish_v0"], secs["publish_v1"] = pub0.seconds, pub1.seconds
+    secs["detect_v1"] = pub1.detect_seconds
     return ServeRun(sl, prompts, params, params1, pub0, pub1, out0, out1, secs)
 
 
@@ -267,7 +271,8 @@ def main() -> None:
           f"served {args.batch}x({args.prompt_len}+{args.tokens}) in "
           f"{r.seconds['serve_v0']:.2f}s")
     print(f"v1: {n_dirty} dirty blocks, wrote {r.publish_v1.stats['blocks_written']} "
-          f"blocks in place in {r.seconds['publish_v1']:.2f}s; refresh "
+          f"blocks in place in {r.seconds['publish_v1']:.2f}s (dirty detection "
+          f"{r.seconds['detect_v1']:.4f}s); refresh "
           f"{r.seconds['refresh_v1']:.2f}s; served in {r.seconds['serve_v1']:.2f}s")
     for tag, (_, toks) in (("v0", r.out_v0), ("v1", r.out_v1)):
         print(f"  {tag} row 0: {toks[0].tolist()}")

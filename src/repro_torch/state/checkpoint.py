@@ -13,7 +13,7 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.kernels.block_delta.ops import blockify, compute_block_delta
+from repro_torch.kernels.block_delta.ops import blockify, compute_block_delta_flat
 
 
 def exact_dirty_blocks(new: torch.Tensor, old: torch.Tensor, block_bytes: int) -> List[int]:
@@ -34,24 +34,23 @@ def dirty_block_indices(
     "unknown, write conservatively" (shape or dtype changed).
 
     A float32 leaf at least one block long goes through the block-delta
-    kernel (its plain version for CPU tensors) and a block is dirty where
-    its delta norm^2 is above 0 or any of its int8 q is non-zero; any other
-    leaf gets the exact byte compare. The q test catches what the
-    reference's norm^2 rule misses: a block whose every delta is so small
-    that its square underflows float32 has norm^2 0, but its largest delta
-    quantizes to +-127. The kernel is only the detector: ``TensorStore.save``
-    writes the dirty blocks' exact new bytes, never the lossy int8 delta.
-    The kernel detector still does not see a block whose only change is the
-    sign of a zero (the float difference is 0), nor NaN payloads."""
+    kernel (its plain version for CPU tensors), read flat with the ragged
+    last block padded inside the kernel, and a block is dirty where the
+    kernel's exact flag is set: the bits of some element differ between
+    ``new`` and ``old``. Any other leaf gets the exact byte compare. So the
+    answer is the byte compare's, ``exact_dirty_blocks`` and the
+    reference's default ``impl="auto"``, also where the kernel's norm^2 and
+    q see nothing: a zero whose sign flips, a NaN whose payload changes, a
+    finite value that becomes NaN (norm^2 NaN, scale 1, q 0), a delta whose
+    square underflows. The kernel is only the detector: ``TensorStore.save``
+    writes the dirty blocks' exact new bytes, never the lossy int8 delta."""
     if new.dtype != old.dtype or new.shape != old.shape:
         return None
     if new.numel() == 0:
         return []
     if new.dtype == torch.float32 and block_bytes % 4 == 0 \
             and new.numel() >= block_bytes // 4:
-        block_elems = block_bytes // 4
-        nb = blockify(new.contiguous().reshape(-1), block_elems)
-        ob = blockify(old.contiguous().reshape(-1), block_elems)
-        q, norm2, _ = compute_block_delta(nb, ob)
-        return torch.nonzero((norm2 > 0) | (q != 0).any(dim=1)).flatten().tolist()
+        _, _, _, dirty = compute_block_delta_flat(new.reshape(-1), old.reshape(-1),
+                                                  block_bytes // 4)
+        return torch.nonzero(dirty).flatten().tolist()
     return exact_dirty_blocks(new, old, block_bytes)

@@ -4,7 +4,9 @@ the port's dirty-block detector against the reference's.
 
 q must equal IEEE float32 arithmetic's int8 exactly, and the JAX kernel's
 except at quotients within 1e-5 of a half-integer (see _assert_q_matches);
-norm2 and scale match at rtol 1e-5.
+norm2 and scale match at rtol 1e-5. On rows with NaN, +-inf and subnormal
+values q and scale equal JAX's exactly (every quotient there is 0, NaN,
++-inf or a whole number) and norm2 matches with NaN equal to NaN.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 from repro.kernels.block_delta.ops import compute_block_delta as jax_block_delta
 from repro.state.checkpoint import dirty_block_indices as jax_dirty_block_indices
 from repro_torch.kernels.block_delta import ops
-from repro_torch.kernels.block_delta.ref import apply_delta_ref
+from repro_torch.kernels.block_delta.ref import apply_delta_ref, block_delta_ref
 from repro_torch.state.checkpoint import dirty_block_indices, exact_dirty_blocks
 
 CASES = [(4, 128), (8, 256), (16, 512), (1, 1024)]
@@ -112,9 +114,127 @@ def test_cpu_wrapper_never_launches_and_launcher_refuses_cpu():
     x = torch.ones((2, 64))
     before = ops.block_delta.launches
     ops.compute_block_delta(x, x)
+    ops.compute_block_delta_flat(x, x, 48)
     assert ops.block_delta.launches == before
     with pytest.raises(ValueError):
         ops.block_delta(x, x)
+    with pytest.raises(ValueError):
+        ops.block_delta_flat(x, x, 64)
+
+
+# ------------------------------------------------------------------------- #
+# special values: the plain version against JAX on NaN, +-inf, +-0 and
+# subnormal rows (XLA flushes subnormals; so does the plain version)
+# ------------------------------------------------------------------------- #
+SPECIAL_ROWS = {
+    "nan": lambda r, d: (d.__setitem__(7, np.nan), d)[1],           # scale 1, q = round(d)
+    "inf": lambda r, d: (d.__setitem__(3, np.inf), d)[1],           # scale inf, q 0
+    "neg_inf": lambda r, d: (d.__setitem__(3, -np.inf), d)[1],
+    "inf_and_neg_inf": lambda r, d: (d.__setitem__([3, 9], [np.inf, -np.inf]), d)[1],
+    "nan_and_inf": lambda r, d: (d.__setitem__([3, 9], [np.nan, np.inf]), d)[1],
+    "scale_flushes": lambda r, d: d * np.float32(1e-38),            # max|d|/127 < tiny: scale 0
+    "subnormal_max": lambda r, d: (d * np.float32(1e-44)).astype(np.float32),  # deltas flush
+    "zero_signs": lambda r, d: np.where(r.random(d.shape) < 0.5, -0.0, 0.0).astype(np.float32),
+}
+
+
+def _special_pair(kind, be=256, seed=5):
+    """Three rows of ``be``: an ordinary one, the special one, an ordinary
+    one. The special row's delta is built first and added to old = 0 (or
+    carried in new and old as infinities where inf - inf is meant)."""
+    r = np.random.default_rng(seed)
+    old = r.standard_normal((3, be)).astype(np.float32)
+    new = (old + np.float32(0.01) * r.standard_normal((3, be))).astype(np.float32)
+    d = SPECIAL_ROWS[kind](r, r.standard_normal(be).astype(np.float32) * np.float32(3))
+    old[1] = 0.0
+    new[1] = d
+    return new, old
+
+
+@pytest.mark.parametrize("kind", list(SPECIAL_ROWS))
+def test_plain_special_rows_match_jax(kind):
+    new, old = _special_pair(kind)
+    qt, nt, st = ops.compute_block_delta(torch.from_numpy(new), torch.from_numpy(old))
+    qj, nj, sj = jax_block_delta(jnp.asarray(new), jnp.asarray(old), impl="pallas_interpret")
+    np.testing.assert_array_equal(qt.numpy()[1], np.asarray(qj)[1])
+    np.testing.assert_array_equal(st.numpy()[1], np.asarray(sj)[1])
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), rtol=1e-5, equal_nan=True)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5)
+
+
+def test_plain_special_rows_read_as_stated():
+    """The semantics the kernels share, stated on one row each."""
+    def row(kind):
+        new, old = _special_pair(kind)
+        q, n2, sc = block_delta_ref(torch.from_numpy(new), torch.from_numpy(old))
+        return q[1], float(n2[1]), float(sc[1]), torch.from_numpy(new[1] - old[1])
+    q, n2, sc, d = row("nan")
+    assert np.isnan(n2) and sc == 1.0 and int(q[7]) == 0
+    assert torch.equal(q[:7], torch.clamp(torch.round(d[:7]), -127, 127).to(torch.int8))
+    q, n2, sc, _ = row("inf_and_neg_inf")
+    assert n2 == np.inf and sc == np.inf and int(q.abs().max()) == 0
+    q, n2, sc, d = row("scale_flushes")
+    assert n2 == 0.0 and sc == 0.0                    # 1e-38 deltas: their squares flush
+    normal = d.abs() >= torch.finfo(torch.float32).tiny  # subnormal deltas flush to 0
+    assert torch.equal(q, torch.where(normal, torch.sign(d) * 127, 0).to(torch.int8))
+    assert 0 < int(normal.sum()) < len(d)
+    q, n2, sc, _ = row("subnormal_max")
+    assert n2 == 0.0 and sc == 1.0 and int(q.abs().max()) == 0
+
+
+# ------------------------------------------------------------------------- #
+# the flat entry: ragged leaves padded inside, plus the exact dirty flag
+# ------------------------------------------------------------------------- #
+@pytest.mark.parametrize("n,be", [(1000, 256), (1024, 256), (77, 256), (3 * 512 + 5, 512)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flat_ref_equals_blockify_rows_and_bitwise_flag(n, be, dtype):
+    tdt = DTYPES[dtype][0]
+    r = np.random.default_rng(n)
+    old = torch.from_numpy(r.standard_normal(n).astype(np.float32)).to(tdt)
+    new = old.clone()
+    new[r.choice(n, 3, replace=False)] += 1.0
+    new[-1] = -0.0 if float(old[-1]) == 0.0 else -new[-1]
+    q, n2, sc, dirty = ops.compute_block_delta_flat(new, old, be)
+    nb_, ob_ = ops.blockify(new, be), ops.blockify(old, be)
+    qr, nr, sr = block_delta_ref(nb_, ob_)
+    bits = torch.int32 if tdt == torch.float32 else torch.int16
+    want_dirty = (nb_.view(bits) != ob_.view(bits)).any(dim=1)
+    assert torch.equal(q, qr) and torch.equal(sc, sr) and torch.equal(dirty, want_dirty)
+    np.testing.assert_array_equal(n2.numpy(), nr.numpy())
+    assert dirty.dtype == torch.bool and q.shape == (-(-n // be), be)
+    assert dirty.tolist() == [i in exact_dirty_blocks(new, old, be * new.element_size())
+                              for i in range(len(dirty))]
+
+
+def test_flat_ref_flag_sees_what_norm2_and_q_do_not():
+    old = torch.zeros(4 * 64)
+    old[64] = float("nan")
+    new = old.clone()
+    new[5] = -0.0                                                   # block 0: zero sign
+    new[64] = torch.tensor(0x7fc00001, dtype=torch.int32).view(torch.float32)  # 1: payload
+    new[2 * 64 + 1] = float("nan")                                  # 2: finite -> NaN
+    q, n2, sc, dirty = ops.compute_block_delta_flat(new, old, 64)
+    assert dirty.tolist() == [True, True, True, False]
+    assert int(q.abs().max()) == 0
+    assert float(n2[0]) == 0.0 and np.isnan(float(n2[1])) and np.isnan(float(n2[2]))
+
+
+def test_cluster_route_takes_serving_rows_and_leaves_the_rest():
+    """The route is plain Python: the serving rows (65,536 float32) go to
+    the cluster kernel at the first block size whose cluster fits; long
+    rows, lengths that are not whole 16-byte loads, to the two-pass kernel."""
+    for be, dt in [(65536, torch.float32), (32768, torch.float32), (131072, torch.bfloat16),
+                   (256, torch.float32), (1000, torch.bfloat16)]:
+        nt, c = ops.cluster_shape(be, dt)
+        fits = [t for t in ops.CLUSTER_THREADS
+                if -(-be // (t * ops.VALUES_PER_THREAD)) <= ops.MAX_CLUSTER]
+        assert nt == fits[0] and c == -(-be // (nt * ops.VALUES_PER_THREAD)) <= 16
+    assert ops.cluster_shape(1 << 20, torch.float32) is None
+    assert ops.cluster_shape(1 << 18, torch.float32) == (1024, 16)
+    assert ops.cluster_shape(1002, torch.float32) is None           # 4008 B rows
+    assert ops.cluster_shape(1004, torch.bfloat16) is None          # 2008 B rows
+    assert ops.cluster_shape(65536, torch.float32) == (256, 16)
+    assert ops.cluster_shape(131072, torch.float32) == (512, 16)
 
 
 # ------------------------------------------------------------------------- #
@@ -131,16 +251,55 @@ def _sparse_change(shape, dtype, seed, n_changes=3):
     return new, old
 
 
-@pytest.mark.parametrize("shape,dtype,block_bytes", [
-    ((64, 100), np.float32, 1024),     # kernel path, ragged last block
-    ((32, 32), np.float32, 1024),      # kernel path, whole blocks
-    ((10,), np.float32, 1024),         # shorter than a block: byte compare
-    ((40, 30), np.int32, 512),         # not float32: byte compare
-    ((50, 20), np.float16, 256),       # not float32: byte compare
+def _special_change(shape, change, seed):
+    """float32 leaves whose change the kernel's norm^2 and q may not see;
+    each change lands on three elements in random blocks, and on the last
+    element of the leaf (a ragged last block where the shape gives one)."""
+    r = np.random.default_rng(seed)
+    old = r.standard_normal(shape).astype(np.float32)
+    new = old.copy()
+    o, f = old.reshape(-1), new.reshape(-1)
+    idx = list(r.choice(f.size - 1, 3, replace=False)) + [f.size - 1]
+    bits = {"nan_payload": (0x7fc00000, 0x7fc00123), "zero_sign": (0x00000000, 0x80000000)}
+    for i in idx:
+        if change in bits:
+            o[i:i + 1].view(np.uint32)[0], f[i:i + 1].view(np.uint32)[0] = bits[change]
+        elif change == "to_nan":
+            f[i] = np.nan
+        elif change in ("to_inf", "to_neg_inf"):
+            f[i] = np.inf if change == "to_inf" else -np.inf
+        elif change == "tiny":
+            o[i], f[i] = 0.0, np.float32(1e-25)
+        else:
+            raise ValueError(change)
+    return new, old
+
+
+@pytest.mark.parametrize("shape,dtype,block_bytes,change", [
+    pytest.param((64, 100), np.float32, 1024, None, id="shape0-float32-1024"),  # whole blocks
+    pytest.param((32, 32), np.float32, 1024, None, id="shape1-float32-1024"),   # whole blocks
+    pytest.param((10,), np.float32, 1024, None, id="shape2-float32-1024"),  # under a block: bytes
+    pytest.param((40, 30), np.int32, 512, None, id="shape3-int32-512"),     # not float32: bytes
+    pytest.param((50, 20), np.float16, 256, None, id="shape4-float16-256"),  # not float32: bytes
+    pytest.param((50, 77), np.float32, 1024, None, id="ragged"),        # 3850 = 15 x 256 + 10
+    pytest.param((50, 77), np.float32, 1024, "zero_sign", id="zero_sign"),
+    pytest.param((50, 77), np.float32, 1024, "nan_payload", id="nan_payload"),
+    pytest.param((50, 77), np.float32, 1024, "to_nan", id="to_nan"),
+    pytest.param((50, 77), np.float32, 1024, "to_inf", id="to_inf"),
+    pytest.param((50, 77), np.float32, 1024, "to_neg_inf", id="to_neg_inf"),
+    pytest.param((50, 77), np.float32, 1024, "tiny", id="tiny"),
+    pytest.param((64, 100), np.float32, 1024, "to_nan", id="whole_to_nan"),
 ])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_dirty_block_indices_matches_reference(shape, dtype, block_bytes, seed):
-    new, old = _sparse_change(shape, dtype, seed)
+def test_dirty_block_indices_matches_reference(shape, dtype, block_bytes, change, seed):
+    """The port's detector equals the reference's default (``impl="auto"``,
+    the exact byte compare) on ordinary changes and on those the kernel's
+    norm^2 and q miss: the sign of a zero, NaN payloads, finite -> NaN,
+    +-inf, a delta of 1e-25, each also in a ragged last block."""
+    if change is None:
+        new, old = _sparse_change(shape, dtype, seed)
+    else:
+        new, old = _special_change(shape, change, seed)
     got = dirty_block_indices(torch.from_numpy(new), torch.from_numpy(old), block_bytes)
     want = jax_dirty_block_indices(new, old, block_bytes, impl="auto")
     assert got == want

@@ -8,8 +8,9 @@ fixture decides at run time). On a machine with the card:
 builds the kernels (``nvcc``, ``sm_90a``) and holds each against its plain
 version on the same inputs: flash attention to 1e-5 in float32 and 2.5e-2
 in bf16 (the reference tests' bounds; bf16 at head_dim 64 and 128 runs the
-tensor-core kernel, the rest the CUDA-core one), block delta with q equal as int8,
-scale equal and norm2 to rtol 1e-5 (sums in another order), the selective
+tensor-core kernel, the rest the CUDA-core one), block delta (cluster and
+two-pass kernels) with q equal as int8, scale and the dirty flag equal and
+norm2 to rtol 1e-5 (sums in another order; NaN equal), the selective
 scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
 and to 2e-4 on the last state.
 """
@@ -20,7 +21,7 @@ import torch
 from repro_torch.bridge import flat_tensors
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels.block_delta import ops as bd_ops
-from repro_torch.kernels.block_delta.ref import block_delta_ref
+from repro_torch.kernels.block_delta.ref import block_delta_flat_ref, block_delta_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -159,6 +160,132 @@ def test_dirty_block_indices_on_card_equals_exact_compare(cuda):
     got = dirty_block_indices(new, old, 1 << 18)
     assert bd_ops.block_delta.launches == before + 1
     assert got == exact_dirty_blocks(new, old, 1 << 18) == [0, 2, 3]
+
+
+def _delta_pair(n, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    new = torch.randn(n, generator=g, device=device)
+    old = (new + 0.1 * torch.randn(n, generator=g, device=device)).to(dtype)
+    return new.to(dtype), old
+
+
+def _special_rows(be, dtype, device):
+    """Rows of ``be`` in a flat leaf: ordinary, NaN, +inf, -inf, inf - inf,
+    a zero-sign flip, a scale that flushes to 0 (deltas near 1e-38), all
+    deltas subnormal (flushed), NaN payload only, clean."""
+    g = torch.Generator(device=device).manual_seed(11)
+    nrow = 10
+    old = torch.randn(nrow, be, generator=g, device=device)
+    new = old + 0.01 * torch.randn(nrow, be, generator=g, device=device)
+    new[1, 17] = float("nan")
+    new[2, 5] = float("inf")
+    new[3, 9] = -float("inf")
+    old[4, 0], new[4, 0] = float("inf"), float("inf")
+    new[4, 1] = -float("inf")
+    old[5] = 0.0
+    new[5] = 0.0
+    new[5, 3] = -0.0
+    old[6] = 0.0
+    new[6] = torch.randn(be, generator=g, device=device) * 1e-38
+    old[7] = 0.0
+    new[7] = torch.randn(be, generator=g, device=device) * 1e-39   # subnormal in bf16 too
+    old[8] = 0.0
+    old[8, 2] = float("nan")
+    new[8] = old[8]
+    old[9] = new[9]
+    new, old = new.to(dtype), old.to(dtype)
+    if dtype == torch.float32:
+        new.view(torch.int32)[8, 2] += 3
+    else:
+        new.view(torch.int16)[8, 2] += 3
+    return new.reshape(-1), old.reshape(-1)
+
+
+def _assert_flat_equal(got, want):
+    qk, nk, sk, dk = got
+    qr, nr, sr, dr = want
+    assert torch.equal(qk, qr)
+    assert torch.equal(sk, sr) or bool(((sk == sr) | (sk.isnan() & sr.isnan())).all())
+    assert torch.equal(dk, dr)
+    np.testing.assert_allclose(nk.cpu().numpy(), nr.cpu().numpy(), rtol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,be,dtype", [
+    (3 * 65536, 65536, torch.float32),
+    (3 * 65536 + 77, 65536, torch.float32),       # ragged, not a whole 16-byte load
+    (2 * 65536 + 4, 65536, torch.float32),
+    (5 * 32768 + 1000, 32768, torch.float32),
+    (2 * 131072 + 8, 131072, torch.bfloat16),
+    (4 * 131072 + 3, 131072, torch.bfloat16),
+    (7 * 4096 + 96, 4096, torch.bfloat16),
+])
+def test_block_delta_cluster_kernel_matches_plain(cuda, n, be, dtype):
+    new, old = _delta_pair(n, dtype, 2, cuda)
+    old[:be] = new[:be]                                  # one clean row
+    before = (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass)
+    got = bd_ops.block_delta_flat(new, old, be)
+    torch.cuda.synchronize()
+    assert (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass) == \
+        (before[0] + 1, before[1])
+    want = block_delta_flat_ref(new, old, be)
+    _assert_flat_equal(got, want)
+    assert not bool(got[3][0]) and bool(got[3][1:-1].all())
+
+
+@pytest.mark.parametrize("be,dtype", [(65536, torch.float32), (32768, torch.float32),
+                                      (131072, torch.bfloat16)])
+@pytest.mark.parametrize("kernel", ["cluster", "two_pass"])
+def test_block_delta_special_rows_match_plain(cuda, be, dtype, kernel):
+    new, old = _special_rows(be, dtype, cuda)
+    got = bd_ops.block_delta_flat(new, old, be, kernel=kernel)
+    torch.cuda.synchronize()
+    want = block_delta_flat_ref(new, old, be)
+    _assert_flat_equal(got, want)
+    assert got[3].tolist() == [True] * 9 + [False]
+    assert float(got[2][6]) == 0.0 and float(got[2][7]) == 1.0 and float(got[2][1]) == 1.0
+
+
+@pytest.mark.parametrize("be,threads", [(65536, 256), (131072, 512), (262144, 1024)],
+                         ids=["256", "512", "1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block_delta_cluster_kernel_every_block_size(cuda, be, threads, dtype):
+    """Every block size the source builds, reached through the route by row
+    length: rows of 65,536, 131,072 and 262,144 elements, each a cluster of
+    16 blocks."""
+    assert bd_ops.cluster_shape(be, dtype) == (threads, 16)
+    new, old = _delta_pair(6 * be + 40, dtype, 3, cuda)
+    old[2 * be:3 * be] = new[2 * be:3 * be]
+    before = (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass)
+    got = bd_ops.block_delta_flat(new, old, be)
+    torch.cuda.synchronize()
+    assert (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass) == \
+        (before[0] + 1, before[1])
+    _assert_flat_equal(got, block_delta_flat_ref(new, old, be))
+    assert got[3].tolist() == [True, True, False, True, True, True, True]
+
+
+@pytest.mark.parametrize("case", ["long_rows", "odd_length", "misaligned"])
+def test_block_delta_two_pass_kernel_takes_what_the_cluster_kernel_does_not(cuda, case):
+    be = {"long_rows": 1 << 19, "odd_length": 1002, "misaligned": 65536}[case]
+    new, old = _delta_pair(3 * be + 5 + 1, torch.float32, 4, cuda)
+    if case == "misaligned":                             # 4 bytes past a 16-byte boundary
+        new, old = new[1:], old[1:]
+    before = (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass)
+    got = bd_ops.block_delta_flat(new, old, be)
+    torch.cuda.synchronize()
+    assert (bd_ops.block_delta.launches_cluster, bd_ops.block_delta.launches_two_pass) == \
+        (before[0], before[1] + 1)
+    _assert_flat_equal(got, block_delta_flat_ref(new, old, be))
+    with pytest.raises(ValueError):
+        bd_ops.block_delta_flat(new, old, be, kernel="cluster")
+
+
+def test_dirty_block_indices_on_card_sees_special_changes(cuda):
+    new, old = _special_rows(65536, torch.float32, cuda)
+    before = bd_ops.block_delta.launches_cluster
+    got = dirty_block_indices(new, old, 1 << 18)
+    assert bd_ops.block_delta.launches_cluster == before + 1
+    assert got == exact_dirty_blocks(new, old, 1 << 18) == list(range(9))
 
 
 def test_dirty_block_indices_on_card_sees_underflowing_delta(cuda):

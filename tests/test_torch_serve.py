@@ -166,6 +166,31 @@ def test_inplace_delta_publish_writes_a_change_whose_square_underflows():
     assert out["params/w"].tobytes() == w.numpy().tobytes()
 
 
+def test_inplace_delta_publish_writes_changes_the_kernel_statistics_miss():
+    """A zero whose sign flips, a NaN whose payload changes and a finite
+    value that becomes NaN leave norm^2 at 0 or NaN and q at 0; the exact
+    flag flags their blocks, which are written and read back byte for
+    byte (ROADMAP.md, Queue 3, fault 5)."""
+    cfg = reduced_config(get_config(ARCH))
+    sl = serve.ServeSlice(cfg, device="cpu", tokens=1, block_bytes=1024)
+    w0 = torch.zeros(5, 256)
+    w0[1, 3] = float("nan")
+    sl.publish({"w": w0})
+    w = w0.clone()
+    w[0, 7] = -0.0
+    w.view(torch.int32)[1, 3] += 5
+    w[3, 255] = float("nan")
+    info = sl.publish({"w": w})
+    assert info.dirty == {"params/w": [0, 1, 3]}
+    assert info.stats["blocks_written"] == 3
+    assert info.detect_seconds > 0 and info.detect_seconds <= info.seconds
+    out = {}
+    FunctionRuntime(sl.boot).invoke(
+        lambda fs: out.update(TensorStore(fs, prefix=serve.ROOT).load(serve.NAME)),
+        read_only=True)
+    assert out["params/w"].tobytes() == w.numpy().tobytes()
+
+
 def test_reference_checkpoint_delta_save_loses_clean_blocks():
     """Records reference fault 1 (ROADMAP.md, Queue 3): JAX
     ``CheckpointManager`` writes a delta save into a NEW ``step_{n}``
