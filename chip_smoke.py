@@ -8,7 +8,8 @@ Run from a checkout of the repository, on a machine with a CUDA card,
 non-zero at the first failure:
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. build the three CUDA kernels, one ``nvcc`` per source, all at once;
+  2. build the CUDA kernels (flash attention forward and backward, block
+     delta, selective scan), one ``nvcc`` per source, all at once;
   3. flash attention: the kernels against their plain version at the JAX
      kernel tests' cases in float32 (CUDA-core kernel) and bf16
      (tensor-core kernel) and at the two serving shapes (qwen2-1.5b: B 4,
@@ -16,20 +17,27 @@ non-zero at the first failure:
      2048; causal, bf16); kernel, plain and ``scaled_dot_product_attention``
      times, and the model-level ``attention()`` from (B, S, H, hd) inputs,
      which adds the layout copies around the kernel;
-  4. block delta: both kernels (the cluster kernel and the two-pass one)
+  4. flash backward: the kernel against its plain version
+     (``attention_bwd_ref``) at the JAX kernel tests' cases in float32 and
+     bf16, at the qwen2-1.5b training shape and at hymba-1.5b's attention
+     shape (bf16); kernel (eager and CUDA graph), plain and SDPA backward
+     times;
+  5. block delta: both kernels (the cluster kernel and the two-pass one)
      against the plain version on rows of special values (NaN, +-inf, -0,
      subnormal); the cluster kernel against the plain version on the
      float32 leaves each serving path passes it, flat and ragged (8 of
      qwen2-1.5b, 18 of hymba-1.5b); times of both kernels, eager and as a
      CUDA graph, and of the plain version;
-  5. selective scan: the kernel against its plain version at the JAX
+  6. selective scan: the kernel against its plain version at the JAX
      kernel tests' cases in float32 and bf16 and at the hymba-1.5b serving
      shape (B 4, S 512, Di 3200, N 16, x bf16; y and the last state);
      kernel and plain times;
-  6. small inputs: the reduced qwen2-1.5b, hymba-1.5b and falcon-mamba-7b
+  7. small inputs: the reduced qwen2-1.5b, hymba-1.5b and falcon-mamba-7b
      serving computations in float32 on the card (kernels) against the
-     same on the CPU;
-  7. the serving slice at full width, first qwen2-1.5b (28 layers, 1.54 G
+     same on the CPU, and one float32 train step of the reduced qwen2-1.5b
+     on the card against the same on the CPU (loss, each leaf's gradient,
+     the new params);
+  8. the serving slice at full width, first qwen2-1.5b (28 layers, 1.54 G
      float32 parameters), then, after its trees are freed, hymba-1.5b (32
      hybrid layers, 1.66 G): publish, refresh, serve 4 x 512-token prompts
      plus 32 greedy tokens, in-place delta publish, refresh, serve; launch
@@ -37,11 +45,25 @@ non-zero at the first failure:
      attention must go to the tensor-core kernel, every block delta to the
      cluster kernel), the seconds of dirty detection, and its results
      checked;
-  8. one JSON line of per-kernel numbers, then the result line
+  9. the training slice: three train steps of qwen2-1.5b at full width and
+     depth on the card (B 4 x S 512 from ``synth_batch``, bf16 compute,
+     remat), outside FaaSFS, with seconds, tokens/s, peak device memory and
+     the flash launches per kernel (every forward on the tensor-core
+     kernel, 56 forward and 28 backward launches a step), then one step
+     with the plain attention from the same state (loss and grad norm
+     compared); then ``launch/train.run`` at full width with the depth cut
+     to 4 layers (the FaaSFS stack is host Python): init, 2 transactional
+     steps, a full checkpoint, 1 step, a delta checkpoint, a restore, and
+     prefill + 32 greedy tokens served from the restored params, with every
+     dirty set held against the exact byte compare and ``blocks_written``,
+     the restore against the trainer's state and the served params against
+     the restore, bit for bit;
+  10. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
-     over the two serving runs (``launches_by_path`` splits it); its times
+     over the full-width runs (``launches_by_path`` splits it); its times
      and bound are at the qwen2-1.5b serving shapes for flash attention and
-     block delta (the hymba-1.5b ones are printed beside them) and at the
+     block delta (the hymba-1.5b ones are printed beside them), at the
+     qwen2-1.5b training shape for the flash backward and at the
      hymba-1.5b shape for the selective scan. ``ms``, ``plain_ms`` and
      ``library_ms`` are eager times per call, which include the wrappers'
      host work; ``device_ms`` and ``library_device_ms`` are device times of
@@ -54,6 +76,7 @@ result line. The kernels build into ``build/kernels`` of the checkout.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -95,6 +118,28 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.5e-2}
 # over 32 layers; expected about 5e-2.
 PREFILL_REL_BOUND = {"qwen2-1.5b": 5e-2, "hymba-1.5b": 1e-1}
 PREFILL_F32_REL_BOUND = 1e-4
+# Flash backward, kernel against attention_bwd_ref, max |diff| over the
+# gradient's largest |value|: float32 sums in another order (1.3e-6 seen
+# between the plain version and JAX on the CPU); bf16 gradients round to
+# bf16, up to 3.9e-3 of a value.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# The full-depth training step, kernel path against the plain attention
+# path from the same state, both bf16, relative differences. Stated before
+# the first run on the card: the two paths round the attention's scores and
+# probabilities at other places (the prefill logits differ by 4.4e-2 of the
+# largest logit); the loss averages 2,044 tokens' NLL, so expect about
+# 1e-3 there, and some 1e-2 in the global gradient norm.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GNORM_REL = 5e-2
+# Reduced qwen2-1.5b float32 train step, card against CPU: loss to 1e-5,
+# each leaf's gradient to 1e-4 of its largest |g|, the new params to 1e-6
+# where |g| is above 1e-3 of its leaf's largest (AdamW's first step is
+# +-lr by the sign of g, which rounding may flip where g is tiny).
+SMALL_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-6}
+# Depth of the transactional run: the FaaSFS stack is host Python and
+# commits about 0.2 GB/s (a 6.2 GB publish took 30-35 s), and a training
+# transaction writes params, m and v whole (AdamW dirties every block).
+TXN_LAYERS = 4
 
 
 class Failed(Exception):
@@ -106,8 +151,12 @@ def check(ok: bool, what: str) -> None:
         raise Failed(what)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One line per phase step, with the seconds since the script started."""
+    print(f"[{name} +{time.perf_counter() - _START:.0f}s] {msg}", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
@@ -118,8 +167,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
     device time of what the calls launch."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    if graph:   # a capture's warm-up runs on a side stream, as torch.cuda.graph asks
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+    else:
+        for _ in range(warmup):
+            fn()
     torch.cuda.synchronize()
     run, reps = fn, iters
     if graph:
@@ -245,6 +302,104 @@ def flash_phase(torch, fa_ops, attention_ref):
 
     entry = serving_shape(4, 512, 12, 2, 128, 0, "qwen2-1.5b")
     serving_shape(4, 512, 25, 5, 64, 2048, "hymba-1.5b")
+    return entry
+
+
+def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
+    import torch.nn.functional as F
+
+    def inputs(B, S, H, KV, hd, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(*shape, generator=g, device="cuda").to(dtype)
+                for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd))]
+
+    def errors(q, k, v, do, causal, window, tag):
+        """The plain forward's output, the kernel's (dq, dk, dv) errors
+        against the plain backward, each over the gradient's largest value,
+        and the largest absolute error of the three."""
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+        errs, worst_abs = [], 0.0
+        for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+            check(gg.dtype == ww.dtype and gg.shape == ww.shape
+                  and bool(torch.isfinite(gg.float()).all()), f"flash_bwd {tag}: bad {name}")
+            diff = float((gg.float() - ww.float()).abs().max())
+            errs.append(diff / float(ww.float().abs().max()))
+            worst_abs = max(worst_abs, diff)
+        return o, errs, worst_abs
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst[name] = [0.0, 0.0, 0.0]
+        for (B, S, H, KV, hd, causal, window) in FLASH_CASES:
+            tag = f"{name} case {(B, S, H, KV, hd, causal, window)}"
+            _, errs, _ = errors(*inputs(B, S, H, KV, hd, dtype, 42), causal, window, tag)
+            check(max(errs) <= BWD_TOL[name], f"flash_bwd {tag}: rel err dq/dk/dv {errs} > "
+                                               f"{BWD_TOL[name]}")
+            worst[name] = [max(a, b) for a, b in zip(worst[name], errs)]
+    phase("flash_bwd", "8 reference cases x {float32, bf16} within tolerance; max rel err "
+                       "dq/dk/dv: " + "; ".join(
+                           f"{n} {' / '.join(f'{e:.2e}' for e in w)} (tol {BWD_TOL[n]})"
+                           for n, w in worst.items()))
+
+    def train_shape(B, S, H, KV, hd, window, tag):
+        q, k, v, do = inputs(B, S, H, KV, hd, torch.bfloat16, 7)
+        o, errs, worst_abs = errors(q, k, v, do, True, window, tag)
+        check(max(errs) <= BWD_TOL["bfloat16"], f"flash_bwd {tag}: rel err {errs}")
+        call = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal=True,  # noqa: E731
+                                                  window=window)
+        ms = time_ms(call)
+        device_ms = time_ms(call, graph=True)
+        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, causal=True,
+                                                     window=window), iters=5, warmup=1)
+        # SDPA's backward, the same function (window >= S here, so causal):
+        # eager, its forward's graph kept and the backward called again;
+        # device time, forward and backward captured minus the forward
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True)
+
+        out = sdpa(qs, ks, vs)
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True))
+        # fresh leaves, the eager graph freed: a capture may not meet autograd
+        # nodes made on another stream
+        del out, qs, ks, vs
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        both = time_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), do),
+                       graph=True)
+        with torch.no_grad():
+            fwd = time_ms(lambda: sdpa(q, k, v), graph=True)
+        lib_device_ms = both - fwd
+        pairs = B * H * attended_pairs(S, True, window)
+        flops = 5 * 2 * hd * pairs          # Q K^T again, dV, dP, dK, dQ
+        nbytes = 2 * 4 * (q.numel() + k.numel())   # q, o, dO, dq; k, v, dk, dv (bf16)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        entry = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/model.py:268",
+            "max_abs_err": worst_abs, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+        }
+        phase("flash_bwd", f"{tag}: B{B} S{S} H{H} KV{KV} hd{hd} causal window {window} bf16: "
+                           f"rel err dq/dk/dv {' / '.join(f'{e:.2e}' for e in errs)}, max abs "
+                           f"err {worst_abs:.3e}; "
+                           f"kernel {ms:.4f} ms eager, {device_ms:.4f} ms device (CUDA graph); "
+                           f"plain {plain_ms:.3f} ms; SDPA backward {lib_ms:.4f} ms eager, "
+                           f"{lib_device_ms:.4f} ms device; bound {entry['bound_ms']:.4f} ms "
+                           f"({entry['bound_by']}; {pairs / 1e6:.2f} M pairs, "
+                           f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        del q, k, v, do, o, qs, ks, vs
+        torch.cuda.empty_cache()
+        return entry
+
+    entry = train_shape(4, 512, 12, 2, 128, 0, "qwen2-1.5b")
+    train_shape(4, 512, 25, 5, 64, 2048, "hymba-1.5b")
     return entry
 
 
@@ -473,6 +628,226 @@ def small_input_phase(torch, serve, M, cfg):
                    f"rel err {rel:.2e}, tokens equal")
 
 
+def _grads(torch, M, cfg, params, batch, **kw):
+    """{leaf path: gradient} of ``loss_fn`` at ``params``, as the train step
+    takes it, and the loss."""
+    flat = _flat(params)
+    ps = {k: t.detach().requires_grad_(True) for k, t in flat.items()}
+    total, metrics = M.loss_fn(cfg, _unflat(ps), batch, **kw)
+    grads = torch.autograd.grad(total, list(ps.values()))
+    return float(metrics["loss"].detach()), dict(zip(ps, grads))
+
+
+def small_train_phase(torch, M, runtime, adamw, synth, cfg):
+    """One float32 train step of the reduced config on the card (kernels)
+    and on the CPU (plain versions), and the gradients of the same loss."""
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = synth(cfg, 2, 64)
+    plan = runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                            compute_dtype=torch.float32)
+    step = runtime.make_train_step(plan, adamw.AdamWConfig())
+    new_c, m_c = step(state, batch)
+    new_g, m_g = step(_tree(state, lambda t: t.cuda()), batch)
+    kw = dict(compute_dtype=torch.float32, ce_chunk=32)
+    loss_c, g_c = _grads(torch, M, cfg, params, runtime.batch_to_device(batch, "cpu"), **kw)
+    loss_g, g_g = _grads(torch, M, cfg, _tree(params, lambda t: t.cuda()),
+                         runtime.batch_to_device(batch, "cuda"), **kw)
+    tol = SMALL_TRAIN_TOL
+    rel_loss = abs(m_g["loss"] - m_c["loss"]) / abs(m_c["loss"])
+    check(rel_loss <= tol["loss"] and abs(loss_g - loss_c) <= tol["loss"] * abs(loss_c),
+          f"small train {cfg.name}: card vs CPU loss {m_g['loss']} vs {m_c['loss']}")
+    worst_g = worst_p = 0.0
+    for path, gc in g_c.items():
+        gg = g_g[path].cpu()
+        err = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
+        check(err <= tol["grad"], f"small train {cfg.name}: {path} gradient rel err {err}")
+        worst_g = max(worst_g, err)
+        pc, pg = _flat(new_c["params"])[path], _flat(new_g["params"])[path].cpu()
+        big = gc.abs() > 1e-3 * gc.abs().max()
+        diff = float((pg - pc).abs()[big].max()) if bool(big.any()) else 0.0
+        check(diff <= tol["param"], f"small train {cfg.name}: {path} new params differ by {diff}")
+        worst_p = max(worst_p, diff)
+    phase("small", f"{cfg.name} float32 train step, B2 x S64: card vs CPU loss rel err "
+                   f"{rel_loss:.2e}, gradients max rel err {worst_g:.2e} (of each leaf's "
+                   f"largest), new params max abs diff {worst_p:.2e} where |g| is above 1e-3 "
+                   f"of its leaf's largest")
+
+
+def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
+    """Three train steps at full width and depth on the card, outside
+    FaaSFS; then one plain-attention step from the state before the third."""
+    B, S = 4, 512
+    fa, fb = counters["flash_attention"], counters["flash_attention_bwd"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = adamw.AdamWConfig(lr_peak=1e-4, warmup_steps=2, decay_steps=100)
+    plan = runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512)
+    step = runtime.make_train_step(plan, opt_cfg)
+    _reset(counters)
+    secs, metrics, launches = [], [], []
+    kept = None
+    for i in range(3):
+        batch = synth(cfg, B, S, step=i)
+        if i == 2:
+            kept, kept_batch = state, batch
+        before = (fa.launches_sm90, fa.launches_simt, fb.launches)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+        launches.append(tuple(a - b for a, b in zip((fa.launches_sm90, fa.launches_simt,
+                                                     fb.launches), before)))
+    path_launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_layers
+    for i, got in enumerate(launches):
+        check(got == (2 * L, 0, L), f"train step {i + 1}: flash launches (sm90, simt, bwd) "
+                                    f"{got}, want {(2 * L, 0, L)}")
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"train step metrics not finite: {m}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = B * S
+    phase("train", f"{cfg.name} full width and depth ({L} layers, {cfg.param_count()} params), "
+                   f"B{B} x S{S}, bf16 compute, remat: step seconds "
+                   f"{', '.join(f'{t:.3f}' for t in secs)}; tokens/s "
+                   f"{', '.join(f'{tokens / t:.0f}' for t in secs)}; loss "
+                   f"{_join(m['loss'] for m in metrics)}; grad norm "
+                   f"{_join(m['grad_norm'] for m in metrics)}; peak device memory "
+                   f"{peak:.1f} GiB; init {init_s:.1f} s; flash launches per step: "
+                   f"{launches[0][0]} forward, all on fa_fwd_sm90 (CUDA-core "
+                   f"{launches[0][1]}), {launches[0][2]} backward")
+    plain = runtime.make_train_step(
+        runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512,
+                         attn_impl="plain"), opt_cfg)
+    before = (fa.launches, fb.launches)
+    t0 = time.perf_counter()
+    new, m_plain = plain(kept, kept_batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check((fa.launches, fb.launches) == before, "the plain step launched a flash kernel")
+    del new, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_k = metrics[2]
+    r_loss = abs(m_k["loss"] - m_plain["loss"]) / abs(m_plain["loss"])
+    r_norm = abs(m_k["grad_norm"] - m_plain["grad_norm"]) / abs(m_plain["grad_norm"])
+    check(r_loss <= TRAIN_LOSS_REL and r_norm <= TRAIN_GNORM_REL,
+          f"train step 3, kernel vs plain path: loss rel {r_loss}, grad norm rel {r_norm}")
+    phase("train", f"step 3 kernel path vs plain attention path from the same state: loss "
+                   f"{m_k['loss']:.6f} vs {m_plain['loss']:.6f} (rel {r_loss:.2e}, bound "
+                   f"{TRAIN_LOSS_REL}), grad norm {m_k['grad_norm']:.6f} vs "
+                   f"{m_plain['grad_norm']:.6f} (rel {r_norm:.2e}, bound {TRAIN_GNORM_REL}); "
+                   f"plain step {plain_s:.3f} s")
+    return path_launches
+
+
+def train_txn_phase(torch, M, train, bridge, exact_dirty_blocks, flatten_with_names, counters,
+                    cfg):
+    """``launch/train.run``: the transactional slice at full width, depth cut."""
+    torch.cuda.reset_peak_memory_stats()
+    rss = _PeakRss()
+    _reset(counters)
+    t0 = time.perf_counter()
+    r = train.run(cfg, device="cuda", steps=3, batch=4, seq=512, ckpt_every=2, seed=0,
+                  serve_tokens=32, keep_states=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    fa, fb = counters["flash_attention"], counters["flash_attention_bwd"]
+    bd = counters["block_delta"]
+    L = cfg.num_layers
+    # 3 steps of 2 L forward (remat) and L backward launches, one prefill of L
+    want_fa = {"sm90": 3 * 2 * L + L, "simt": 0, "bwd": 3 * L}
+    got_fa = {"sm90": fa.launches_sm90, "simt": fa.launches_simt, "bwd": fb.launches}
+    check(got_fa == want_fa, f"transactional run: flash launches {got_fa}, want {want_fa}")
+    # float32 leaves of at least one block: params, m and v per step, and
+    # the delta checkpoint's detection of the same
+    big = sum(1 for d in M.param_defs(cfg) if math.prod(d.shape) >= train.BLOCK_BYTES // 4)
+    want_bd = {"cluster": 4 * 3 * big, "two_pass": 0}
+    got_bd = {"cluster": bd.launches_cluster, "two_pass": bd.launches_two_pass}
+    check(got_bd == want_bd, f"transactional run: block_delta launches {got_bd}, want {want_bd}")
+    phase("train_txn", f"{cfg.name} at full width, depth cut to {L} layers "
+                       f"({cfg.param_count()} params; the state, params + m + v, "
+                       f"{3 * 4 * cfg.param_count() / 1e9:.2f} GB): run {wall:.1f} s; launches "
+                       f"{launches}; flash by kernel {got_fa}; block_delta by kernel {got_bd}")
+
+    bb = train.BLOCK_BYTES
+    for i, res in enumerate(r.steps):
+        old, new = bridge.flat_tensors(r.states[i]), bridge.flat_tensors(r.states[i + 1])
+        for name, t in new.items():
+            exact = exact_dirty_blocks(t, old[name], bb)
+            check(res.dirty[name] == exact, f"step {i + 1} {name}: kernel dirty set "
+                                            f"{res.dirty[name]} != exact {exact}")
+        n_dirty = sum(len(v) for v in res.dirty.values())
+        check(n_dirty == res.blocks_written and n_dirty > 0,
+              f"step {i + 1}: dirty {n_dirty} != blocks_written {res.blocks_written}")
+        check(res.step == i + 1, f"step counter {res.step} after {i + 1} steps")
+    check(int(r.states[-1]["opt"]["count"]) == 3, "optimizer count is not 3 after 3 steps")
+    full, delta = r.saves
+    check(full.dirty is None and delta.dirty is not None, "want a full, then a delta checkpoint")
+    old, new = bridge.flat_tensors(r.states[2]), bridge.flat_tensors(r.states[3])
+    for name, t in new.items():
+        exact = exact_dirty_blocks(t, old[name], bb)
+        check(delta.dirty[name] == exact, f"delta checkpoint {name}: dirty set != exact")
+    n_delta = sum(len(v) for v in delta.dirty.values())
+    check(n_delta == delta.blocks_written, f"delta checkpoint: dirty {n_delta} != "
+                                           f"blocks_written {delta.blocks_written}")
+    phase("train_txn", f"each step's kernel dirty set == exact byte compare == blocks_written "
+                       f"({', '.join(str(s.blocks_written) for s in r.steps)} of "
+                       f"{full.blocks_written} blocks); delta checkpoint likewise "
+                       f"({delta.blocks_written} blocks, {delta.bytes_written} of "
+                       f"{delta.bytes_total} B; detection {delta.detect_s:.4f} s); step counter "
+                       f"{r.steps[-1].step}")
+
+    check(r.restored_step == 3, f"restored step {r.restored_step}")
+    host = dict(flatten_with_names(r.restored))
+    dev = bridge.flat_tensors(bridge.params_from_numpy(r.restored, "cuda"))
+    for name, want in bridge.flat_tensors(r.states[-1]).items():
+        check(host[name].tobytes() == want.cpu().numpy().tobytes(),
+              f"{name}: restored host bytes differ from the trainer's state")
+        check(torch.equal(dev[name].reshape(-1).view(torch.uint8),
+                          want.reshape(-1).view(torch.uint8)),
+              f"{name}: restored device tensor differs from the trainer's state")
+    served = bridge.flat_tensors({"params": r.serve_slice.device_params()})
+    snap = dict(flatten_with_names(r.serve_slice.server.params))
+    for name, t in served.items():
+        check(torch.equal(t.view(torch.int32), dev[name].view(torch.int32)),
+              f"{name}: served device params differ from the restored ones")
+        check(snap[name].tobytes() == host[name].tobytes(),
+              f"{name}: served snapshot bytes differ from the restored ones")
+    logits, toks = r.served
+    check(logits.shape == (4, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+          and toks.shape == (4, 33), "transactional run: bad served outputs")
+    peak_rss = rss.stop()
+    phase("train_txn", f"restore (delta chain over step 2) bit-identical to the trainer's "
+                       f"state on card and host; served params bit-identical to the restored "
+                       f"ones; losses {_join(s.metrics['loss'] for s in r.steps)}; "
+                       f"stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                     r.seconds.items())
+          + f"; peak host RSS {peak_rss:.1f} GiB; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches
+
+
+def _join(values, fmt: str = ".4f") -> str:
+    return ", ".join(format(v, fmt) for v in values)
+
+
+def _reset(counters) -> None:
+    for fn in counters.values():
+        for attr in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(fn, attr, 0)
+
+
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
@@ -529,9 +904,7 @@ def full_width_phase(torch, serve, M, counters, bridge, exact_dirty_blocks,
     B, S, T = 4, 512, 32
     torch.cuda.reset_peak_memory_stats()
     rss = _PeakRss()
-    for fn in counters.values():
-        for attr in [a for a in vars(fn) if a.startswith("launches")]:
-            setattr(fn, attr, 0)
+    _reset(counters)
     t0 = time.perf_counter()
     run = serve.run(cfg, device="cuda", batch=B, prompt_len=S, tokens=T, seed=0)
     torch.cuda.synchronize()
@@ -673,9 +1046,17 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_ref
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
+    from repro_torch.models import runtime
+    from repro_torch.optim import adamw
     from repro_torch.state.checkpoint import exact_dirty_blocks
+
+    def synth(cfg, B, S, step=0):
+        return synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B),
+                           step)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -685,8 +1066,9 @@ def main() -> int:
     phase("env", f"torch {torch.__version__} cuda {torch.version.cuda} "
                  f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    counters = {"flash_attention": fa_ops.flash_attention, "block_delta": bd_ops.block_delta,
-                "ssm_scan": scan_ops.selective_scan_fwd}
+    counters = {"flash_attention": fa_ops.flash_attention,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd,
+                "block_delta": bd_ops.block_delta, "ssm_scan": scan_ops.selective_scan_fwd}
     paths = [get_config("qwen2-1.5b"), get_config("hymba-1.5b")]
     try:
         t0 = time.perf_counter()
@@ -699,7 +1081,9 @@ def main() -> int:
                 phase("build", f"{name}: {entry}: {regs} registers, {spill} B spill stores")
 
         block_elems = serve.BLOCK_BYTES // 4
-        entries = {"flash_attention": flash_phase(torch, fa_ops, attention_ref)}
+        entries = {"flash_attention": flash_phase(torch, fa_ops, attention_ref),
+                   "flash_attention_bwd": flash_bwd_phase(torch, fa_ops, attention_ref,
+                                                          attention_bwd_ref)}
         block_delta_special_check(torch, bd_ops, block_delta_flat_ref)
         for cfg in paths:
             leaf_numels = [math.prod(d.shape) for d in M.param_defs(cfg)
@@ -710,11 +1094,19 @@ def main() -> int:
         entries["ssm_scan"] = scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref)
         for cfg in paths + [get_config("falcon-mamba-7b")]:
             small_input_phase(torch, serve, M, reduced_config(cfg))
+        small_train_phase(torch, M, runtime, adamw, synth, reduced_config(paths[0]))
         by_path = {}
         for cfg in paths:
             _free_host_and_device(torch)
             by_path[cfg.name] = full_width_phase(torch, serve, M, counters, bridge,
                                                  exact_dirty_blocks, flatten_with_names, cfg)
+        _free_host_and_device(torch)
+        by_path["train " + paths[0].name] = train_full_phase(
+            torch, M, runtime, adamw, synth, counters, paths[0])
+        _free_host_and_device(torch)
+        cut = dataclasses.replace(paths[0], num_layers=TXN_LAYERS)
+        by_path[f"train_txn {paths[0].name} ({TXN_LAYERS} layers)"] = train_txn_phase(
+            torch, M, train, bridge, exact_dirty_blocks, flatten_with_names, counters, cut)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,9 +1,14 @@
-"""Carry parameter trees between FaaSFS (numpy leaves) and torch devices.
+"""Carry parameter and training-state trees between FaaSFS (numpy leaves)
+and torch devices.
 
 Leaf names are those of ``core.tensorstate.flatten_with_names`` (sorted,
 '/'-joined dict paths), so a tree published by either package loads in the
-other. ``DeviceSnapshot`` keeps the device copy of a served snapshot: it
-moves a snapshot to the card once per snapshot version, and after the first
+other. A training state ``{"params", "opt": {"m", "v", "count"}}`` crosses
+as a parameter tree does, its int32 scalar ``count`` as a 0-d array on the
+host and a 0-d tensor on the device, so a state written by either
+package's trainer or checkpoint manager loads into the other.
+``DeviceSnapshot`` keeps the device copy of a served snapshot: it moves a
+snapshot to the card once per snapshot version, and after the first
 version it moves only the blocks whose bytes changed.
 """
 from __future__ import annotations
@@ -23,12 +28,14 @@ PyTree = Any
 
 
 def _from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """A CPU tensor over ``arr``'s memory. FaaSFS snapshot leaves are
-    readonly arena views; torch warns on those, and every caller here only
-    reads the tensor (copies it to a device or into a fresh buffer)."""
+    """A CPU tensor over ``arr``'s memory, of ``arr``'s shape (0-d too:
+    ``np.ascontiguousarray`` would make a scalar 1-d). FaaSFS snapshot
+    leaves are readonly arena views; torch warns on those, and every caller
+    here only reads the tensor (copies it to a device or into a fresh
+    buffer)."""
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(np.require(arr, requirements="C"))
 
 
 def params_from_numpy(tree: PyTree, device: str = "cuda") -> PyTree:
@@ -42,12 +49,21 @@ def params_from_numpy(tree: PyTree, device: str = "cuda") -> PyTree:
 
 
 def params_to_numpy(tree: PyTree) -> PyTree:
-    """Nested dict of tensors -> same structure of host numpy arrays."""
+    """Nested dict of tensors -> same structure of host numpy arrays (0-d
+    tensors to 0-d arrays)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if tree.dtype == torch.bfloat16:
         raise TypeError("bf16 leaves have no numpy dtype; publish float32")
     return tree.detach().cpu().numpy()
+
+
+def structure(tree: PyTree) -> PyTree:
+    """``tree``'s dict structure with empty leaves: a template for
+    ``unflatten_like`` that holds no tensor or array memory."""
+    if isinstance(tree, dict):
+        return {k: structure(v) for k, v in tree.items()}
+    return None
 
 
 def flat_tensors(tree: PyTree) -> Dict[str, torch.Tensor]:

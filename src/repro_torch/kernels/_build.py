@@ -29,6 +29,7 @@ NVCC_FLAGS = [
 ]
 SOURCES = {
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "block_delta": KERNELS_DIR / "block_delta" / "csrc" / "block_delta.cu",
     "ssm_scan": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }

@@ -75,9 +75,16 @@ selective_scan_fwd.launches = 0  # kernel launches; callers reset it to 0
 
 
 def selective_scan(x, dt, b, c, a, d, *, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, h_last): the plain version for CPU tensors, the kernel otherwise."""
+    """(y, h_last): the plain version for CPU tensors, the kernel otherwise.
+    The kernel has no backward yet, so a CUDA call that autograd would
+    differentiate raises instead of returning outputs without a gradient."""
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, b, c, a, d, h0=h0)
+    args = (x, dt, b, c, a, d) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise NotImplementedError(
+            "the selective-scan kernel has no backward yet: training the ssm and "
+            "hybrid families on the card waits for it (ROADMAP, Queue 1)")
     return selective_scan_fwd(x, dt, b, c, a, d, h0=h0)
 
 

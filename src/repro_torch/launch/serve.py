@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.bridge import DeviceSnapshot, flat_tensors, params_to_numpy
+from repro_torch.bridge import DeviceSnapshot, flat_tensors, params_to_numpy, structure
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced_config
 from repro_torch.core.backend import BackendService
 from repro_torch.core.client import LocalServer
@@ -44,14 +44,6 @@ from repro_torch.state.checkpoint import dirty_block_indices
 BLOCK_BYTES = 1 << 18
 ROOT = "/mnt/tsfs/train"
 NAME = "state"
-
-
-def _structure(tree):
-    """``tree``'s dict structure with empty leaves: a SnapshotServer
-    template that holds no parameter memory."""
-    if isinstance(tree, dict):
-        return {k: _structure(v) for k, v in tree.items()}
-    return None
 
 
 def generate(
@@ -168,7 +160,7 @@ class ServeSlice:
         self.published = params
         if self.server is None:
             self.server = SnapshotServer(LocalServer(self.backend), self._decode_fn,
-                                         _structure(tree), root=ROOT, name=NAME)
+                                         structure(tree), root=ROOT, name=NAME)
         return PublishInfo(self.backend.latest_ts, stats, dirty,
                            time.perf_counter() - t0, detect)
 

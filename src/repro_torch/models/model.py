@@ -1,4 +1,4 @@
-"""Decoder: param defs, init, prefill and decode, in PyTorch.
+"""Decoder: param defs, init, training loss, prefill and decode, in PyTorch.
 
 Port of ``repro.models.model`` for the dense, ssm and hybrid families.
 Parameters are a plain nested dict of tensors with the reference's
@@ -10,16 +10,18 @@ over the stacked layers. MoE and vision-prefix configs raise
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_xla, decode_attention_xla
 from repro_torch.models.layers import (
     apply_rope,
+    cross_entropy_chunked,
     embed_tokens,
     rms_norm,
     rms_norm_headwise,
@@ -175,6 +177,14 @@ def _layer(layers: PyTree, i: int) -> PyTree:
     return _tree_map(lambda p: p[i], layers)
 
 
+def _unbind_layers(layers: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` per-layer trees of the stacked ``layers``. One ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where ``n``
+    indexings would each scatter into a zero tensor of the whole stack."""
+    per_leaf = _tree_map(lambda p: p.unbind(0), layers)
+    return [_tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
+
+
 # --------------------------------------------------------------------------- #
 # Blocks
 # --------------------------------------------------------------------------- #
@@ -253,36 +263,81 @@ def forward_hidden(
     compute_dtype=torch.bfloat16,
     q_chunk: int = 0,
     collect_cache: bool = False,
+    remat: bool = True,
+    remat_policy: Optional[str] = None,
     attn_impl: str = "auto",
     scan_impl: str = "auto",
 ):
     """Embed -> blocks -> final norm.
 
-    Returns (hidden (B, S, D), cache | None): the layers' decode states
-    stacked on a leading L axis (``block_fwd``). Inference only: no
-    rematerialization, no auxiliary loss.
+    Returns (hidden (B, S, D), aux_loss, cache | None): the auxiliary loss
+    is a float32 zero for the families ported so far (the MoE slice brings
+    the load-balance term), and the cache holds the layers' decode states
+    stacked on a leading L axis (``block_fwd``).
+
+    With ``remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint`` (as the reference's ``jax.checkpoint`` per
+    scanned layer): only its input is kept, and its forward is recomputed
+    in the backward pass. ``remat_policy="dots"`` (keep the products) is
+    not ported.
     """
     _require_ported(cfg)
+    if remat_policy is not None:
+        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported (ROADMAP)")
     x = embed_tokens(params["embed"], tokens, compute_dtype)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
+    impls = dict(q_chunk=q_chunk, attn_impl=attn_impl, scan_impl=scan_impl)
+    wrap = remat and torch.is_grad_enabled() and not collect_cache
     states: Dict[str, List[torch.Tensor]] = {}
-    for i in range(cfg.num_layers):
-        x, state = block_fwd(cfg, x, _layer(layers, i), positions, q_chunk=q_chunk,
-                             attn_impl=attn_impl, scan_impl=scan_impl)
+    for lp in _unbind_layers(layers, cfg.num_layers):
+        if wrap:
+            x = checkpoint(lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, **impls)[0],
+                           x, lp, use_reentrant=False)
+            continue
+        x, state = block_fwd(cfg, x, lp, positions, **impls)
         if collect_cache:
             for key, t in state.items():
                 states.setdefault(key, []).append(t)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {k: torch.stack(v) for k, v in states.items()} if collect_cache else None
-    return x, caches
+    return x, aux, caches
 
 
 def lm_head_weight(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: PyTree,
+    batch: Dict[str, torch.Tensor],
+    *,
+    compute_dtype=torch.bfloat16,
+    aux_weight: float = 0.01,
+    q_chunk: int = 0,
+    ce_chunk: int = 512,
+    remat: bool = True,
+    remat_policy: Optional[str] = None,
+    attn_impl: str = "auto",
+):
+    """Next-token cross-entropy (+ the auxiliary term). batch: tokens,
+    labels, mask. Returns (total, {"loss", "aux_loss", "tokens"}), all
+    float32 scalar tensors, as the reference's ``loss_fn``."""
+    hidden, aux, _ = forward_hidden(
+        cfg, params, batch["tokens"], compute_dtype=compute_dtype, q_chunk=q_chunk,
+        remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
+    )
+    head = lm_head_weight(cfg, params).to(compute_dtype)
+    nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],
+                                           chunk=ce_chunk)
+    loss = nll_sum / torch.clamp(n_tok, min=1.0)
+    total = loss + aux_weight * aux / max(cfg.num_layers, 1)
+    return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
 
 
 def prefill(
@@ -304,7 +359,7 @@ def prefill(
     last state. Copied into a ``make_decode_cache`` cache they let decode
     continue after the prompt, as the serving path needs.
     """
-    hidden, cache = forward_hidden(
+    hidden, _, cache = forward_hidden(
         cfg, params, tokens, compute_dtype=compute_dtype, q_chunk=q_chunk,
         collect_cache=True, attn_impl=attn_impl, scan_impl=scan_impl,
     )

@@ -8,7 +8,9 @@ fixture decides at run time). On a machine with the card:
 builds the kernels (``nvcc``, ``sm_90a``) and holds each against its plain
 version on the same inputs: flash attention to 1e-5 in float32 and 2.5e-2
 in bf16 (the reference tests' bounds; bf16 at head_dim 64 and 128 runs the
-tensor-core kernel, the rest the CUDA-core one), block delta (cluster and
+tensor-core kernel, the rest the CUDA-core one), the flash backward to
+1e-5 (float32) and 1e-2 (bf16, gradients rounded to bf16: 3.9e-3 of a
+value) of each gradient's largest value, block delta (cluster and
 two-pass kernels) with q equal as int8, scale and the dirty flag equal and
 norm2 to rtol 1e-5 (sums in another order; NaN equal), the selective
 scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
@@ -23,11 +25,14 @@ from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels.block_delta import ops as bd_ops
 from repro_torch.kernels.block_delta.ref import block_delta_flat_ref, block_delta_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 from repro_torch.launch import serve
+from repro_torch.configs.base import ShapeCell
 from repro_torch.models import model as M
+from repro_torch.models.runtime import CellPlan, make_train_step
+from repro_torch.optim import adamw
 from repro_torch.state.checkpoint import dirty_block_indices, exact_dirty_blocks
 
 FLASH_CASES = [  # tests/kernels/test_flash_attention.py, then ragged / small heads
@@ -130,6 +135,129 @@ def test_flash_kernel_refuses_unsupported_head_dim(cuda):
     q = torch.zeros(1, 2, 64, 48, device=cuda)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q[:, :1], q[:, :1])
+
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BWD_CASES = FLASH_CASES + [(4, 512, 25, 5, 64, True, 2048)]   # + hymba-1.5b's shape
+
+
+def _bwd_inputs(B, S, H, KV, hd, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(*shape, generator=g, device=device).to(dtype)
+            for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd))]
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KV, hd, causal, window, dtype):
+    q, k, v, do = _bwd_inputs(B, S, H, KV, hd, dtype, 5, cuda)
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    for name, gg, ww in zip("qkv", got, want):
+        assert gg.dtype == dtype and gg.shape == ww.shape, name
+        assert bool(torch.isfinite(gg.float()).all()), name
+        assert _rel(gg, ww) <= BWD_TOL[dtype], (name, _rel(gg, ww))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (2, 256, 4, 2, 64, True, 0), (1, 200, 4, 1, 128, True, 64), (2, 77, 2, 2, 32, False, 0),
+    (4, 512, 12, 2, 128, True, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_fn_grads_match_plain_autograd(cuda, B, S, H, KV, hd, causal, window,
+                                                       dtype):
+    """``attention`` on CUDA tensors (FlashAttentionFn: forward kernel, then
+    the backward kernel) against autograd of the plain version on the card.
+    bf16 to 2.5e-2: the kernel's forward output, from which D is taken,
+    differs from the plain one within the forward's own bound."""
+    q, k, v, do = (t.transpose(1, 2).contiguous()
+                   for t in _bwd_inputs(B, S, H, KV, hd, dtype, 9, cuda))
+    fa = fa_ops.flash_attention
+    before = (fa.launches, fa_ops.flash_attention_bwd.launches)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.attention(*ins, causal=causal, window=window)
+    got = torch.autograd.grad(out, ins, do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa_ops.flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_out = attention_ref(*(t.transpose(1, 2) for t in ref_ins), causal=causal,
+                            window=window).transpose(1, 2)
+    want = torch.autograd.grad(ref_out, ref_ins, do)
+    tol = 1e-5 if dtype == torch.float32 else 2.5e-2
+    for name, gg, ww in zip("qkv", got, want):
+        assert gg.dtype == dtype and gg.shape == ww.shape, name
+        assert _rel(gg, ww) <= tol, (name, _rel(gg, ww))
+
+
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 64, 48, device=cuda)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)
+    q = torch.zeros(1, 2, 64, 64, device=cuda)
+    k = torch.zeros(1, 1, 32, 64, device=cuda)
+    with pytest.raises(ValueError):          # Sq != Sk
+        fa_ops.flash_attention_bwd(q, k, k, q, q)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q.bfloat16(), q)
+
+
+def _leaf_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.cpu().float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step of the reduced qwen2-1.5b on the card (flash
+    forward and backward kernels) and on the CPU (plain versions): loss and
+    grad norm to 1e-5, the first moments (0.1 x the clipped gradient) to
+    1e-4 of each leaf's largest, the new params to 1e-6 where the gradient
+    is above 1e-3 of its leaf's largest."""
+    cfg = reduced_config(get_config("qwen2-1.5b"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = _train_batch(cfg)
+    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                                    compute_dtype=torch.float32), adamw.AdamWConfig())
+    new_c, m_c = step(state, batch)
+    fa = fa_ops.flash_attention
+    before = (fa.launches, fa_ops.flash_attention_bwd.launches)
+    new_g, m_g = step(_to(state, cuda), batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (fa.launches, fa_ops.flash_attention_bwd.launches) == (before[0] + 2 * L,
+                                                                  before[1] + L)
+    assert m_g["loss"] == pytest.approx(m_c["loss"], rel=1e-5)
+    assert m_g["grad_norm"] == pytest.approx(m_c["grad_norm"], rel=1e-5)
+    for name, t in flat_tensors(new_g["opt"]["m"]).items():
+        assert _leaf_rel(t, flat_tensors(new_c["opt"]["m"])[name]) <= 1e-4, name
+    # where the gradient is at rounding level, AdamW's first step is +-lr
+    # by its sign, which the two devices may round either way
+    for name, t in flat_tensors(new_g["params"]).items():
+        m = flat_tensors(new_c["opt"]["m"])[name].abs()
+        big = m > 1e-3 * m.max()
+        diff = (t.cpu() - flat_tensors(new_c["params"])[name]).abs()
+        assert float(diff[big].max()) <= 1e-6, name
+
+
+def _train_batch(cfg):
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    return synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_ssm_training_on_card_raises(cuda, arch):
+    cfg = reduced_config(get_config(arch))
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2)), adamw.AdamWConfig())
+    with pytest.raises(NotImplementedError):
+        step(state, _train_batch(cfg))
 
 
 @pytest.mark.parametrize("nb,be", [(4, 128), (8, 256), (16, 512), (1, 1024), (3, 65536),
