@@ -17,11 +17,14 @@ non-zero at the first failure:
      2048; causal, bf16); kernel, plain and ``scaled_dot_product_attention``
      times, and the model-level ``attention()`` from (B, S, H, hd) inputs,
      which adds the layout copies around the kernel;
-  4. flash backward: the kernel against its plain version
-     (``attention_bwd_ref``) at the JAX kernel tests' cases in float32 and
-     bf16, at the qwen2-1.5b training shape and at hymba-1.5b's attention
-     shape (bf16); kernel (eager and CUDA graph), plain and SDPA backward
-     times;
+  4. flash backward: the forward kernels' stored log-sum-exp against its
+     plain version (``attention_lse_ref``), then the backward, fed the
+     forward kernel's output and lse, against its plain version
+     (``attention_bwd_ref``) at the JAX kernel tests' cases in float32
+     (CUDA-core route) and bf16 (tensor-core route at head_dim 64 and 128),
+     at the qwen2-1.5b training shape and at hymba-1.5b's attention shape
+     (bf16); tensor-core kernels (eager and CUDA graph), the CUDA-core route
+     on the same bf16 inputs, plain and SDPA backward times;
   5. block delta: both kernels (the cluster kernel and the two-pass one)
      against the plain version on rows of special values (NaN, +-inf, -0,
      subnormal); the cluster kernel against the plain version on the
@@ -49,7 +52,8 @@ non-zero at the first failure:
      depth on the card (B 4 x S 512 from ``synth_batch``, bf16 compute,
      remat), outside FaaSFS, with seconds, tokens/s, peak device memory and
      the flash launches per kernel (every forward on the tensor-core
-     kernel, 56 forward and 28 backward launches a step), then one step
+     kernel, 56 forward and 28 backward launches a step, every backward on
+     the tensor-core route), then one step
      with the plain attention from the same state (loss and grad norm
      compared); then ``launch/train.run`` at full width with the depth cut
      to 4 layers (the FaaSFS stack is host Python): init, 2 transactional
@@ -123,6 +127,10 @@ PREFILL_F32_REL_BOUND = 1e-4
 # between the plain version and JAX on the CPU); bf16 gradients round to
 # bf16, up to 3.9e-3 of a value.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# The log-sum-exp the forward kernels store, against attention_lse_ref, max
+# |diff|: float32 sums in another order, and ex2.approx (2 ulp) in the
+# tensor-core kernel, on values of order 1-10.
+LSE_TOL = 1e-4
 # The full-depth training step, kernel path against the plain attention
 # path from the same state, both bf16, relative differences. Stated before
 # the first run on the card: the two paths round the attention's scores and
@@ -281,7 +289,7 @@ def flash_phase(torch, fa_ops, attention_ref):
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         entry = {
-            "name": "flash_attention", "route": "cuda",
+            "name": "flash_attention", "route": "cuda", "route_detail": "fa_fwd_sm90",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
             "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
@@ -305,7 +313,7 @@ def flash_phase(torch, fa_ops, attention_ref):
     return entry
 
 
-def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
+def flash_bwd_phase(torch, fa_ops, attention_lse_ref, attention_bwd_ref):
     import torch.nn.functional as F
 
     def inputs(B, S, H, KV, hd, dtype, seed):
@@ -314,11 +322,20 @@ def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
                 for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd))]
 
     def errors(q, k, v, do, causal, window, tag):
-        """The plain forward's output, the kernel's (dq, dk, dv) errors
-        against the plain backward, each over the gradient's largest value,
-        and the largest absolute error of the three."""
-        o = attention_ref(q, k, v, causal=causal, window=window)
-        got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+        """The forward kernel's output and lse, the lse's largest error
+        against the plain version, the backward's (dq, dk, dv) errors
+        against the plain backward at that output, each over the gradient's
+        largest value, and the largest absolute error of the three."""
+        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        lse_err = float((lse - attention_lse_ref(q, k, v, causal=causal, window=window))
+                        .abs().max())
+        check(lse_err <= LSE_TOL, f"flash lse {tag}: err {lse_err} > {LSE_TOL}")
+        fb = fa_ops.flash_attention_bwd
+        before = (fb.launches_sm90, fb.launches_simt)
+        got = fb(q, k, v, o, do, lse, causal=causal, window=window)
+        sm90 = fa_ops.uses_sm90_bwd(q.dtype, q.shape[-1], q.shape[1] // k.shape[1])
+        check((fb.launches_sm90, fb.launches_simt) == (before[0] + sm90, before[1] + 1 - sm90),
+              f"flash_bwd {tag}: launched on the wrong route")
         want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
         errs, worst_abs = [], 0.0
         for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
@@ -327,31 +344,46 @@ def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
             diff = float((gg.float() - ww.float()).abs().max())
             errs.append(diff / float(ww.float().abs().max()))
             worst_abs = max(worst_abs, diff)
-        return o, errs, worst_abs
+        return o, lse, lse_err, errs, worst_abs
 
-    worst = {}
+    worst, worst_lse = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst[name] = [0.0, 0.0, 0.0]
         for (B, S, H, KV, hd, causal, window) in FLASH_CASES:
             tag = f"{name} case {(B, S, H, KV, hd, causal, window)}"
-            _, errs, _ = errors(*inputs(B, S, H, KV, hd, dtype, 42), causal, window, tag)
+            _, _, lse_err, errs, _ = errors(*inputs(B, S, H, KV, hd, dtype, 42), causal, window,
+                                            tag)
             check(max(errs) <= BWD_TOL[name], f"flash_bwd {tag}: rel err dq/dk/dv {errs} > "
                                                f"{BWD_TOL[name]}")
             worst[name] = [max(a, b) for a, b in zip(worst[name], errs)]
-    phase("flash_bwd", "8 reference cases x {float32, bf16} within tolerance; max rel err "
-                       "dq/dk/dv: " + "; ".join(
+            worst_lse = max(worst_lse, lse_err)
+    phase("flash_bwd", f"forward lse vs plain: max abs err {worst_lse:.2e} (tol {LSE_TOL}); "
+                       "8 reference cases x {float32 (CUDA-core), bf16 (tensor-core)} within "
+                       "tolerance; max rel err dq/dk/dv: " + "; ".join(
                            f"{n} {' / '.join(f'{e:.2e}' for e in w)} (tol {BWD_TOL[n]})"
                            for n, w in worst.items()))
 
     def train_shape(B, S, H, KV, hd, window, tag):
         q, k, v, do = inputs(B, S, H, KV, hd, torch.bfloat16, 7)
-        o, errs, worst_abs = errors(q, k, v, do, True, window, tag)
+        o, lse, lse_err, errs, worst_abs = errors(q, k, v, do, True, window, tag)
         check(max(errs) <= BWD_TOL["bfloat16"], f"flash_bwd {tag}: rel err {errs}")
-        call = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal=True,  # noqa: E731
+        call = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True,  # noqa: E731
                                                   window=window)
+        first = call()
+        again = call()
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(first, again))
+        check(same, f"flash_bwd {tag}: two calls on the same inputs differ")
         ms = time_ms(call)
         device_ms = time_ms(call, graph=True)
+        # the CUDA-core route on the same bf16 inputs, for comparison
+        simt = lambda: fa_ops._launch_bwd(q, k, v, o, do, lse, causal=True,  # noqa: E731
+                                          window=window, sm90=False)
+        simt_errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                     for a, b in zip(simt(), first)]
+        simt_ms = time_ms(simt, iters=5, warmup=1)
+        simt_device_ms = time_ms(simt, iters=5, warmup=1, graph=True)
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, causal=True,
                                                      window=window), iters=5, warmup=1)
         # SDPA's backward, the same function (window >= S here, so causal):
@@ -379,6 +411,8 @@ def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         entry = {
             "name": "flash_attention_bwd", "route": "cuda",
+            "route_detail": "fa_bwd_dsum, then fa_bwd_dkdv_sm90 (clusters of H/KV) beside "
+                            "fa_bwd_dq_sm90 on a second stream",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/model.py:268",
             "max_abs_err": worst_abs, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
@@ -387,14 +421,18 @@ def flash_bwd_phase(torch, fa_ops, attention_ref, attention_bwd_ref):
             "library_ms": lib_ms, "library_device_ms": lib_device_ms,
         }
         phase("flash_bwd", f"{tag}: B{B} S{S} H{H} KV{KV} hd{hd} causal window {window} bf16: "
-                           f"rel err dq/dk/dv {' / '.join(f'{e:.2e}' for e in errs)}, max abs "
-                           f"err {worst_abs:.3e}; "
-                           f"kernel {ms:.4f} ms eager, {device_ms:.4f} ms device (CUDA graph); "
-                           f"plain {plain_ms:.3f} ms; SDPA backward {lib_ms:.4f} ms eager, "
+                           f"lse err {lse_err:.2e}; rel err dq/dk/dv "
+                           f"{' / '.join(f'{e:.2e}' for e in errs)}, max abs err "
+                           f"{worst_abs:.3e}; two calls bit-identical; tensor-core route "
+                           f"{ms:.4f} ms eager, {device_ms:.4f} ms device (CUDA graph); "
+                           f"CUDA-core route {simt_ms:.4f} ms eager, {simt_device_ms:.4f} ms "
+                           f"device (rel diff to the tensor-core route dq/dk/dv "
+                           f"{' / '.join(f'{e:.1e}' for e in simt_errs)}); plain "
+                           f"{plain_ms:.3f} ms; SDPA backward {lib_ms:.4f} ms eager, "
                            f"{lib_device_ms:.4f} ms device; bound {entry['bound_ms']:.4f} ms "
                            f"({entry['bound_by']}; {pairs / 1e6:.2f} M pairs, "
                            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        del q, k, v, do, o, qs, ks, vs
+        del q, k, v, do, o, lse, qs, ks, vs, first, again
         torch.cuda.empty_cache()
         return entry
 
@@ -492,7 +530,7 @@ def block_delta_phase(torch, bd_ops, block_delta_flat_ref, leaf_numels, block_el
         torch.cuda.empty_cache()
     t_bytes, t_ops = total_bytes / PEAK_BYTES, total_ops / PEAK_F32_FLOPS
     entry = {
-        "name": "block_delta", "route": "cuda",
+        "name": "block_delta", "route": "cuda", "route_detail": "delta_cluster_kernel",
         "source": "src/repro_torch/kernels/block_delta/csrc/block_delta.cu",
         "replaces": "src/repro/kernels/block_delta/kernel.py:36",
         "max_abs_err": worst_abs, "ms": total["ms"], "device_ms": total["device_ms"],
@@ -587,7 +625,7 @@ def scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     exp_ms = B * S * Di * N / (n_sm * EX2_PER_CLOCK_SM * SM_CLOCK_HZ) * 1e3
     entry = {
-        "name": "ssm_scan", "route": "cuda",
+        "name": "ssm_scan", "route": "cuda", "route_detail": "ssm_scan_kernel",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:55",
         "max_abs_err": max(errs["bfloat16"]), "ms": ms, "device_ms": device_ms,
@@ -696,20 +734,22 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
         batch = synth(cfg, B, S, step=i)
         if i == 2:
             kept, kept_batch = state, batch
-        before = (fa.launches_sm90, fa.launches_simt, fb.launches)
+        before = (fa.launches_sm90, fa.launches_simt, fb.launches_sm90, fb.launches_simt)
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         metrics.append(m)
         launches.append(tuple(a - b for a, b in zip((fa.launches_sm90, fa.launches_simt,
-                                                     fb.launches), before)))
+                                                     fb.launches_sm90, fb.launches_simt),
+                                                    before)))
     path_launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_layers
     for i, got in enumerate(launches):
-        check(got == (2 * L, 0, L), f"train step {i + 1}: flash launches (sm90, simt, bwd) "
-                                    f"{got}, want {(2 * L, 0, L)}")
+        check(got == (2 * L, 0, L, 0), f"train step {i + 1}: flash launches (forward sm90, "
+                                       f"simt, backward sm90, simt) {got}, want "
+                                       f"{(2 * L, 0, L, 0)}")
     for m in metrics:
         check(all(math.isfinite(v) for v in m.values()), f"train step metrics not finite: {m}")
     del state
@@ -724,7 +764,8 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
                    f"{_join(m['grad_norm'] for m in metrics)}; peak device memory "
                    f"{peak:.1f} GiB; init {init_s:.1f} s; flash launches per step: "
                    f"{launches[0][0]} forward, all on fa_fwd_sm90 (CUDA-core "
-                   f"{launches[0][1]}), {launches[0][2]} backward")
+                   f"{launches[0][1]}), {launches[0][2]} backward, all on the tensor-core "
+                   f"route (CUDA-core {launches[0][3]})")
     plain = runtime.make_train_step(
         runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512,
                          attn_impl="plain"), opt_cfg)
@@ -766,8 +807,9 @@ def train_txn_phase(torch, M, train, bridge, exact_dirty_blocks, flatten_with_na
     bd = counters["block_delta"]
     L = cfg.num_layers
     # 3 steps of 2 L forward (remat) and L backward launches, one prefill of L
-    want_fa = {"sm90": 3 * 2 * L + L, "simt": 0, "bwd": 3 * L}
-    got_fa = {"sm90": fa.launches_sm90, "simt": fa.launches_simt, "bwd": fb.launches}
+    want_fa = {"sm90": 3 * 2 * L + L, "simt": 0, "bwd_sm90": 3 * L, "bwd_simt": 0}
+    got_fa = {"sm90": fa.launches_sm90, "simt": fa.launches_simt,
+              "bwd_sm90": fb.launches_sm90, "bwd_simt": fb.launches_simt}
     check(got_fa == want_fa, f"transactional run: flash launches {got_fa}, want {want_fa}")
     # float32 leaves of at least one block: params, m and v per step, and
     # the delta checkpoint's detection of the same
@@ -1047,7 +1089,7 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_ref
     from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
     from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.models import runtime
@@ -1082,7 +1124,7 @@ def main() -> int:
 
         block_elems = serve.BLOCK_BYTES // 4
         entries = {"flash_attention": flash_phase(torch, fa_ops, attention_ref),
-                   "flash_attention_bwd": flash_bwd_phase(torch, fa_ops, attention_ref,
+                   "flash_attention_bwd": flash_bwd_phase(torch, fa_ops, attention_lse_ref,
                                                           attention_bwd_ref)}
         block_delta_special_check(torch, bd_ops, block_delta_flat_ref)
         for cfg in paths:
@@ -1114,8 +1156,8 @@ def main() -> int:
     for name, e in entries.items():
         e["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+    keys = ["name", "route", "route_detail", "source", "replaces", "launches", "max_abs_err",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms", "launches_by_path"]
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

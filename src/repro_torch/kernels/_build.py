@@ -3,8 +3,9 @@
 Each ``<kernel>/csrc/<name>.cu`` exposes a plain C interface and is compiled
 on its own by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the
 repository root (listed in ``.gitignore``). The library file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``--use_fast_math`` is never passed: the kernels
+hash of the source, of the headers (``*.cuh``) in its ``csrc/`` directory and
+of the flags, so an edited source or header is rebuilt and an unchanged one
+is reused. ``--use_fast_math`` is never passed: the kernels
 rely on IEEE division, ``expf`` and ``rintf`` to match their plain versions.
 
 Nothing here runs at import time; the first wrapper call builds.
@@ -55,7 +56,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -28,7 +28,13 @@
 // does before its PV product; then O += P V with wgmma m64n{hd}k16, A from
 // registers and V as an MN-major (transposed) B operand. Query tiles are
 // launched heaviest first (the last tile of a causal row first). The
-// epilogue divides by l (1 where l == 0) and stores bf16.
+// epilogue divides by l (1 where l == 0) and stores bf16. The wgmma,
+// TMA and mbarrier helpers live in sm90.cuh, shared with the backward.
+//
+// Both kernels store, when the caller passes an lse pointer, each row's
+// log-sum-exp of its masked scaled scores (natural log; +inf where l == 0)
+// from the epilogue's m and l, which the backward needs to recompute P
+// without a pass of its own; a null pointer leaves prefill as it was.
 //
 // fa_fwd_kernel (repro_flash_attention_fwd): float32 (every head_dim) and
 // bf16 at head_dim 16 or 32, on the CUDA cores. Same block ownership; per
@@ -59,10 +65,7 @@
 // persistent grid that prefetches the next tile's Q were both slower. The
 // CUDA-core kernel runs at float32 rate, far from either bound.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -88,7 +91,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
+              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
               int H, int KV, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int LD = HD + 1;     // padded row stride of the Q, K, V tiles
   constexpr int LDS = BK + 1;    // padded row stride of the score tile
@@ -235,6 +238,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i, qi = q_start + r;
     if (qi >= Sq) continue;
     float l = l_s[r];
+    if (lse != nullptr && tx == 0)   // +inf where l == 0
+      lse[((int64_t)b * H + h) * Sq + qi] = l == 0.f ? __int_as_float(0x7f800000)
+                                                     : m_s[r] + logf(l);
     l = (l == 0.f) ? 1.f : l;  // fully masked rows
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
@@ -243,8 +249,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int KV, int Sq, int Sk, int causal, int window, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int KV, int Sq, int Sk, int causal, int window, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -253,19 +259,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale);
+      static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KV, int Sq, int Sk, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        float* lse, int B, int H, int KV, int Sq, int Sk, int causal,
+                        int window, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+    case 16:
+      return launch<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -276,164 +286,6 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 constexpr int SM90_STAGES = 2;         // K/V ring depth
 constexpr int SM90_THREADS = 160;      // one consumer warpgroup + one producer warp
-constexpr int PANEL = 64 * 64;         // bf16 elements of a 64-row x 128-byte swizzled panel
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Returns once the phase of the given parity has completed. A wait that
-// never completes (a copy that never lands) traps after 2^28 polls rather
-// than holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// One 64 x 64 bf16 box of a 3-D tensor map (column, row, slab) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int slab) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(slab)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle. lbo and sbo in
-// bytes: for a K-major operand sbo is the stride between 8-row groups (lbo
-// unused); for an MN-major one lbo is the stride between 64-element
-// column panels and sbo the stride between groups of 8 K rows.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across a wgmma wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_m64n64k16_rs(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_m64n128k16_rs(d, a, db);
-}
-
-// 2^x on the special-function unit (ex2.approx, about 2 ulp; results
-// below 2^-126 flush to 0), which is all that P, rounded to bf16 next,
-// can use.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int HD>
 constexpr size_t sm90_smem_bytes() {
@@ -443,19 +295,14 @@ constexpr size_t sm90_smem_bytes() {
 }
 
 // Waits for a K tile and issues S = Q K^T for it (no wait for the
-// product): head_dim in steps of 16, 32 bytes of a 128-byte swizzled row.
+// product).
 template <int HD>
 __device__ __forceinline__ void issue_scores(float (&sc)[32], const __nv_bfloat16* q_s,
                                              const __nv_bfloat16* kt, uint64_t* full,
                                              uint32_t parity) {
   mbar_wait(full, parity);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int off = (kk / 4) * PANEL + (kk % 4) * 16;
-    wgmma_m64n64k16_ss(sc, smem_desc(q_s + off, 16, 1024), smem_desc(kt + off, 16, 1024),
-                       kk > 0);
-  }
+  wgmma_abt<HD>(sc, q_s, kt, false);
   wgmma_commit();
 }
 
@@ -468,8 +315,9 @@ __device__ __forceinline__ void issue_scores(float (&sc)[32], const __nv_bfloat1
 template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, HD == 64 ? 3 : 2)
 fa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-            const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int B, int H,
-            int KV, int Sq, int Sk, int causal, int window, float scale) {
+            const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+            float* __restrict__ lse, int B, int H, int KV, int Sq, int Sk, int causal,
+            int window, float scale) {
   constexpr int NP = HD / 64;          // panels per tile
   constexpr int TILE = NP * PANEL;     // bf16 elements per Q, K or V tile
   extern __shared__ unsigned char smem_raw[];
@@ -626,21 +474,12 @@ fa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 
     // P in bf16: 16 keys of the fragment are one A operand of m64k16.
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    pack_frag(pa, sc);
 
-    // O += P V: V (keys, hd) is MN-major for B; 16 keys = two 8-row groups.
-    const __nv_bfloat16* vt = v_s + s * TILE;
+    // O += P V: V (keys, hd) is MN-major for B.
     mbar_wait(&v_full[s], (i / SM90_STAGES) & 1);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<HD>(acc, pa[kk], smem_desc(vt + kk * 16 * 64, PANEL * 2, 1024));
+    wgmma_ab<HD>(acc, pa, v_s + s * TILE);
     wgmma_commit();
     wgmma_wait_all();   // this PV and the next tile's scores
     fence_regs(acc);
@@ -655,15 +494,20 @@ fa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
     for (int e = 0; e < 32; ++e) sc[e] = sn[e];
   }
 
-  // Epilogue: full row sums over the quad, divide, store bf16.
+  // Epilogue: full row sums over the quad, divide, store bf16. The row's
+  // log-sum-exp, where asked for, in natural log of the scaled scores: m is
+  // kept in log2 units (times log2(e)), so lse = m ln 2 + log l.
   __nv_bfloat16* op = o + ((int64_t)b * H + h) * Sq * HD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = (l == 0.f) ? 1.f : l;  // fully masked rows
     const int qi = row0 + 8 * r;
+    if (lse != nullptr && qi < Sq && (lane & 3) == 0)
+      lse[((int64_t)b * H + h) * Sq + qi] =
+          l == 0.f ? __int_as_float(0x7f800000) : m_run[r] * 0.6931471805599453f + logf(l);
+    l = (l == 0.f) ? 1.f : l;  // fully masked rows
     if (qi >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -674,50 +518,11 @@ fa_fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime so that
-// the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A (slabs, rows, hd) bf16 tensor read in 64 x 64 boxes, 128-byte swizzle;
-// rows past `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int slabs) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD>
-cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int KV, int Sq, int Sk, int causal, int window, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                        float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, HD, Sq, B * H) || !make_map(&tk, k, HD, Sk, B * KV) ||
       !make_map(&tv, v, HD, Sk, B * KV))
@@ -729,46 +534,53 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v, void* o, in
   const long long blocks = (long long)((Sq + BQ - 1) / BQ) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   fa_fwd_sm90<HD><<<(unsigned)blocks, SM90_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, H, KV, Sq, Sk, causal, window, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, H, KV, Sq, Sk, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The CUDA-core kernel: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o
-// (B, H, Sq, hd), all contiguous and of one type: dtype 0 is float32, 1 is bf16. head_dim is
-// 16, 32, 64 or 128 and H is a multiple of KV. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported shape).
+// (B, H, Sq, hd), all contiguous and of one type: dtype 0 is float32, 1 is
+// bf16. head_dim is 16, 32, 64 or 128 and H is a multiple of KV. lse, if not
+// null, is a float32 (B, H, Sq) that receives each row's log-sum-exp of its
+// masked scaled scores, natural log (+inf for a row with no unmasked score,
+// so that every exp(s - lse) recomputed from it is 0). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported shape).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                         void* o, int B, int H, int KV, int Sq, int Sk,
-                                         int hd, int causal, int window, float scale,
+                                         void* o, float* lse, int B, int H, int KV, int Sq,
+                                         int Sk, int hd, int causal, int window, float scale,
                                          int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_hd<float>(hd, q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return (int)dispatch_hd<float>(hd, q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window,
+                                   scale, s);
   if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                                           scale, s);
+    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, H, KV, Sq, Sk, causal,
+                                           window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core kernel: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o
 // (B, H, Sq, hd), all bf16, contiguous and 16-byte aligned; head_dim 64 or
-// 128 and H a multiple of KV. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported shape or a tensor map that
-// cuTensorMapEncodeTiled refuses, such as one at an address not 16-byte
-// aligned).
+// 128 and H a multiple of KV; lse as for the CUDA-core kernel. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported shape or a tensor map that cuTensorMapEncodeTiled refuses,
+// such as one at an address not 16-byte aligned).
 extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
-                                              void* o, int B, int H, int KV, int Sq, int Sk,
-                                              int hd, int causal, int window, float scale,
-                                              void* stream) {
+                                              void* o, float* lse, int B, int H, int KV,
+                                              int Sq, int Sk, int hd, int causal, int window,
+                                              float scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return (int)launch_sm90<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+  if (hd == 64)
+    return (int)launch_sm90<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, s);
   if (hd == 128)
-    return (int)launch_sm90<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, s);
+    return (int)launch_sm90<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,10 @@
 Port of ``repro.kernels.flash_attention.ref.attention_ref``: the whole score
 matrix in float32, the same -1e30 masks and the same guard for fully masked
 rows. The CPU tests run it, and ``chip_smoke.py`` holds the kernel against it
-on the card. ``attention_bwd_ref`` is the plain version of the backward
-kernel: the gradient of ``attention_ref`` written out in float32.
+on the card. ``attention_lse_ref`` is the plain version of the per-row
+log-sum-exp that the forward kernels store for the backward, and
+``attention_bwd_ref`` that of the backward kernels: the gradient of
+``attention_ref`` written out in float32.
 """
 from __future__ import annotations
 
@@ -44,6 +46,33 @@ def attention_ref(
     p = p / l
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return out.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,       # (B, H, Sq, hd)
+    k: torch.Tensor,       # (B, KV, Sk, hd)
+    v: torch.Tensor,       # (B, KV, Sk, hd), not read: the signature of attention_ref
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """(B, H, Sq) float32: the logsumexp over keys of each query row's
+    masked scaled scores, as ``attention_ref`` forms them (masked entries
+    -1e30, so a row with every key masked gives -1e30 + log Sk)."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Sq, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    s = torch.where(ok, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def attention_bwd_ref(

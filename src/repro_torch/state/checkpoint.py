@@ -11,16 +11,26 @@ snapshot; a ``latest`` pointer file is renamed into place.
 The reference's delta save has a fault (ROADMAP, Queue 3, item 1): it
 writes only the dirty blocks into a NEW ``step_{n}`` directory, so the
 clean blocks of that step read back as zeros. Here a delta step also
-stores ``.delta``, a JSON record that names the step it was taken against
-and lists each leaf's dirty blocks (``null`` for a leaf written whole), and
-``restore`` loads the full step its chain starts from and overlays each
-delta's blocks in order, all in the same read-only transaction. So every
-committed step, historical ones too, restores bit-identical to what was
-saved, and a delta save still writes only the dirty blocks' bytes.
+stores ``.delta``, a JSON record that names the step it was taken against,
+that step's save identity, and each leaf's dirty blocks (``null`` for a
+leaf written whole), and ``restore`` loads the full step its chain starts
+from and overlays each delta's blocks in order, all in the same read-only
+transaction. Every save writes a fresh random identity (``.id``, 128 bits)
+into its step's directory in the save's own transaction, so a base that
+has been saved again since a delta was taken is detected: such a restore
+raises ``ValueError`` naming both steps and never mixes two versions of a
+step (Queue 3, item 8). A save of a step at or below this manager's last
+one is always a full save, so a chain cannot loop (item 9), and the walk
+raises on a cycle in a hand-made or older chain. So every committed step
+restores bit-identical to what was saved, or raises because a step of
+its chain has been replaced since; a delta save still writes only the
+dirty blocks' bytes. Checkpoints written without identities restore by
+the chain walk alone.
 """
 from __future__ import annotations
 
 import json
+import secrets
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -155,6 +165,7 @@ class CheckpointManager:
         self.block_bytes = block_bytes
         self._baseline: Optional[Dict[str, torch.Tensor]] = None
         self._last_step: Optional[int] = None
+        self._last_id: Optional[str] = None   # identity of that save
 
     def _step_dir(self, step: int) -> str:
         return f"{self.root}/step_{step}"
@@ -162,14 +173,16 @@ class CheckpointManager:
     # ------------------------------------------------------------------ #
     def save(self, step: int, state: PyTree, *, delta_from_last: bool = True) -> SaveInfo:
         """Commit ``state`` as ``step_{step}`` and point ``latest`` at it, in
-        one transaction. With ``delta_from_last`` and an earlier save of
-        another step by this manager, only the blocks that differ from that
-        save are written, and the step records its base and dirty blocks."""
+        one transaction. With ``delta_from_last`` and an earlier save of a
+        lower step by this manager, only the blocks that differ from that
+        save are written, and the step records its base, the base's save
+        identity and the dirty blocks; any other save is full."""
         t0 = time.perf_counter()
         leaves = flat_tensors(state).items()   # any leaves, by their FaaSFS names
         host = {n: _host(leaf) for n, leaf in leaves}
-        base = self._baseline if delta_from_last and self._last_step not in (None, step) \
-            else None
+        base = self._baseline if delta_from_last and self._last_step is not None \
+            and step > self._last_step else None
+        save_id = secrets.token_hex(16)
         current = {n: _device_copy(leaf, host[n]) for n, leaf in leaves}
         dirty: Optional[Dict[str, Optional[List[int]]]] = None
         t_detect = time.perf_counter()
@@ -186,7 +199,7 @@ class CheckpointManager:
             blocks = {n: idx if idx is not None else
                       list(range(-(-host[n].nbytes // self.block_bytes)))
                       for n, idx in dirty.items()}
-            record = {"base": self._last_step, "dirty": dirty}
+            record = {"base": self._last_step, "base_id": self._last_id, "dirty": dirty}
         stats: Dict[str, int] = {}
 
         def do_save(fs: FaaSFS) -> None:
@@ -195,6 +208,7 @@ class CheckpointManager:
             # a flat {name: array} dict flattens to the same leaf names
             stats.update(store.save(f"step_{step}", host, block_bytes=self.block_bytes,
                                     dirty_blocks=blocks))
+            _write_json(fs, f"{self._step_dir(step)}/.id", {"id": save_id})
             delta_path = f"{self._step_dir(step)}/.delta"
             if record is not None:
                 _write_json(fs, delta_path, record)
@@ -211,6 +225,7 @@ class CheckpointManager:
         self.runtime.invoke(do_save, stats=inv)
         self._baseline = current
         self._last_step = step
+        self._last_id = save_id
         return SaveInfo(
             step=step,
             commit_ts=inv.commit_ts,
@@ -245,7 +260,9 @@ class CheckpointManager:
         leaves. A full step loads as in the reference (with ``zero_copy``,
         READONLY views over arena buffers); a delta step loads the full step
         its chain starts from into writable arrays and overlays the chain's
-        dirty blocks in order, in the same read-only transaction."""
+        dirty blocks in order, in the same read-only transaction. Raises
+        ``ValueError`` if a base of the chain has been saved again since
+        its delta was taken, or if the chain loops."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -261,13 +278,24 @@ class CheckpointManager:
     def _load(self, fs: FaaSFS, step: int, zero_copy: bool) -> Dict[str, np.ndarray]:
         store = TensorStore(fs, prefix=self.root)
         chain = []                  # delta steps, newest first
+        visited = set()
         s = step
         while True:
             rec = _read_json(fs, f"{self._step_dir(s)}/.delta")
             if rec is None:
                 break
+            if s in visited:
+                raise ValueError(f"step_{step}: the delta chain loops at step_{s} "
+                                 f"({' -> '.join(str(c) for c, _ in chain)} -> {s})")
+            visited.add(s)
             chain.append((s, rec))
-            s = rec["base"]
+            base = rec["base"]
+            if rec.get("base_id") is not None:   # older deltas name only the step
+                ident = _read_json(fs, f"{self._step_dir(base)}/.id")
+                if ident is None or ident["id"] != rec["base_id"]:
+                    raise ValueError(f"step_{s} is a delta against step_{base}, which has "
+                                     f"been saved again since; step_{s} cannot be restored")
+            s = base
         if not chain:
             return store.load(f"step_{s}", zero_copy=zero_copy)
         flat = store.load(f"step_{s}")          # writable copies

@@ -1,17 +1,22 @@
 """The port's ``CheckpointManager``: the reference's checkpoint tests
 (tests/test_checkpoint.py) on the port, and the fix of the reference's
-delta-save fault (ROADMAP, Queue 3, item 1).
+delta-save fault (ROADMAP, Queue 3, item 1) and of the two faults of its
+own delta chain (items 8 and 9: a re-saved base, a chain that loops).
 
 The reference's SIGKILL test needs the networked server
 (``repro.core.server``, with its WAL, wire and lease modules), which the
 port has not copied; it is listed in ROADMAP.
 """
+import json
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.backend import BackendService
 from repro_torch.core.client import LocalServer
+from repro_torch.core.posix import O_CREAT, O_TRUNC
 from repro_torch.state.checkpoint import CheckpointManager
 
 
@@ -137,3 +142,110 @@ def test_delta_save_detects_on_tensors_and_writes_what_changed(local):
     assert info.dirty == {"w": [2, 3]}
     got, _ = cm.restore({"w": None})
     assert got["w"].tobytes() == w2.numpy().tobytes()
+
+
+def _grid(v):
+    return {"w": np.full((32, 32), v, np.float32)}
+
+
+def test_resaved_base_makes_the_delta_step_raise(local):
+    """ROADMAP Queue 3, item 8: manager A saves step 2 (all 2.0) and step 3
+    (a delta, [0, 0] = 3.0); manager B saves step 2 again (all 5.0). The
+    restore of step 3 refuses instead of returning 3.0 at [0, 0] over 5.0
+    elsewhere; step 2 restores B's values."""
+    a = CheckpointManager(local, block_bytes=1024)
+    a.save(2, _grid(2.0))
+    s3 = _grid(2.0)
+    s3["w"][0, 0] = 3.0
+    assert a.save(3, s3).dirty == {"w": [0]}
+    np.testing.assert_array_equal(a.restore({"w": None}, step=3)[0]["w"], s3["w"])
+    b = CheckpointManager(LocalServer(local.backend), block_bytes=1024)
+    assert b.save(2, _grid(5.0)).dirty is None
+    with pytest.raises(ValueError, match=r"step_3 .*step_2"):
+        a.restore({"w": None}, step=3)
+    np.testing.assert_array_equal(a.restore({"w": None}, step=2)[0]["w"], _grid(5.0)["w"])
+
+
+def _restore_in_thread(cm, step, limit_s=10.0):
+    """``cm.restore`` in a thread joined with a time limit; returns the
+    restored leaves or the exception raised, and fails if it did not end."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = cm.restore({"w": None}, step=step)[0]
+        except Exception as e:   # noqa: BLE001 - handed back to the test
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(limit_s)
+    assert not t.is_alive(), f"restore(step={step}) did not return within {limit_s} s"
+    return out
+
+
+def test_saving_a_lower_step_again_is_full_and_restore_returns(local):
+    """ROADMAP Queue 3, item 9: saves of steps 2, 3 and 2 again by one
+    manager. The second save of step 2 is full (no delta against step 3),
+    so ``restore(step=2)`` returns its values, and step 3, a delta against
+    the first step 2, raises."""
+    cm = CheckpointManager(local, block_bytes=1024)
+    cm.save(2, _grid(2.0))
+    s3 = _grid(2.0)
+    s3["w"][0, 0] = 3.0
+    assert cm.save(3, s3).dirty is not None
+    s2 = _grid(7.0)
+    s2["w"][31, 31] = 8.0
+    assert cm.save(2, s2).dirty is None
+    got = _restore_in_thread(cm, 2)
+    assert "error" not in got, got.get("error")
+    np.testing.assert_array_equal(got["value"]["w"], s2["w"])
+    got = _restore_in_thread(cm, 3)
+    assert isinstance(got.get("error"), ValueError), got
+
+
+def test_hand_written_delta_cycle_raises(local):
+    """Two old-format ``.delta`` records (no base identity) that name each
+    other: the chain walk raises instead of looping."""
+    cm = CheckpointManager(local, block_bytes=1024)
+    cm.save(1, _grid(1.0))
+    cm.save(2, _grid(1.0))
+
+    def make_cycle(fs):
+        for step, base in ((1, 2), (2, 1)):
+            fd = fs.open(f"{cm.root}/step_{step}/.delta", O_CREAT | O_TRUNC)
+            fs.write(fd, json.dumps({"base": base, "dirty": {"w": []}}).encode())
+            fs.close(fd)
+
+    cm.runtime.invoke(make_cycle)
+    got = _restore_in_thread(cm, 2)
+    assert isinstance(got.get("error"), ValueError) and "loops" in str(got["error"]), got
+
+
+def test_checkpoint_without_identities_still_restores(local):
+    """A chain as written before saves had identities (no ``.id`` files,
+    ``.delta`` naming its base by step only) restores by the chain walk."""
+    cm = CheckpointManager(local, block_bytes=1024)
+    cm.save(1, _grid(1.0))
+    s2 = _grid(1.0)
+    s2["w"][16, 3] = 4.0
+    cm.save(2, s2)
+
+    def strip_identities(fs):
+        for step in (1, 2):
+            fs.unlink(f"{cm.root}/step_{step}/.id")
+        path = f"{cm.root}/step_2/.delta"
+        fd = fs.open(path)
+        rec = json.loads(fs.pread(fd, fs.fstat(fd)["st_size"], 0))
+        fs.close(fd)
+        del rec["base_id"]
+        fd = fs.open(path, O_CREAT | O_TRUNC)
+        fs.write(fd, json.dumps(rec).encode())
+        fs.close(fd)
+
+    cm.runtime.invoke(strip_identities)
+    fresh = CheckpointManager(LocalServer(local.backend), block_bytes=1024)
+    got, _ = fresh.restore({"w": None}, step=2)
+    assert got["w"].tobytes() == s2["w"].tobytes()
+    got, _ = fresh.restore({"w": None}, step=1)
+    assert got["w"].tobytes() == _grid(1.0)["w"].tobytes()

@@ -8,9 +8,12 @@ fixture decides at run time). On a machine with the card:
 builds the kernels (``nvcc``, ``sm_90a``) and holds each against its plain
 version on the same inputs: flash attention to 1e-5 in float32 and 2.5e-2
 in bf16 (the reference tests' bounds; bf16 at head_dim 64 and 128 runs the
-tensor-core kernel, the rest the CUDA-core one), the flash backward to
-1e-5 (float32) and 1e-2 (bf16, gradients rounded to bf16: 3.9e-3 of a
-value) of each gradient's largest value, block delta (cluster and
+tensor-core kernel, the rest the CUDA-core one), the log-sum-exp that both
+forward kernels store to 1e-4 (float32 sums in another order, and
+ex2.approx in the tensor-core kernel, on values of order 1-10), the flash
+backward to 1e-5 (float32) and 1e-2 (bf16, gradients rounded to bf16: 3.9e-3
+of a value) of each gradient's largest value, bit-identical from call to
+call on the tensor-core route, block delta (cluster and
 two-pass kernels) with q equal as int8, scale and the dirty flag equal and
 norm2 to rtol 1e-5 (sums in another order; NaN equal), the selective
 scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
@@ -25,7 +28,8 @@ from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels.block_delta import ops as bd_ops
 from repro_torch.kernels.block_delta.ref import block_delta_flat_ref, block_delta_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 from repro_torch.launch import serve
@@ -154,12 +158,19 @@ def _rel(got, want) -> float:
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KV, hd, causal, window, dtype):
+    """The backward on the route of its (dtype, head_dim) (bf16 at 64 and
+    128 on the tensor cores: the JAX kernel tests' cases of those head dims
+    and both training shapes), fed the output and lse of the forward kernel,
+    against the plain backward at that output."""
     q, k, v, do = _bwd_inputs(B, S, H, KV, hd, dtype, 5, cuda)
-    o = attention_ref(q, k, v, causal=causal, window=window)
-    before = fa_ops.flash_attention_bwd.launches
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    fb = fa_ops.flash_attention_bwd
+    before = (fb.launches, fb.launches_sm90, fb.launches_simt)
+    got = fb(q, k, v, o, do, lse, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention_bwd.launches == before + 1
+    sm90 = int(fa_ops.uses_sm90_bwd(dtype, hd, H // KV))
+    assert (fb.launches, fb.launches_sm90, fb.launches_simt) == (
+        before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
     want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
     for name, gg, ww in zip("qkv", got, want):
         assert gg.dtype == dtype and gg.shape == ww.shape, name
@@ -198,14 +209,99 @@ def test_flash_attention_fn_grads_match_plain_autograd(cuda, B, S, H, KV, hd, ca
 
 def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 64, 48, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
     with pytest.raises(ValueError):
-        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q)
+        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, lse)
     q = torch.zeros(1, 2, 64, 64, device=cuda)
     k = torch.zeros(1, 1, 32, 64, device=cuda)
     with pytest.raises(ValueError):          # Sq != Sk
-        fa_ops.flash_attention_bwd(q, k, k, q, q)
+        fa_ops.flash_attention_bwd(q, k, k, q, q, lse)
     with pytest.raises(TypeError):
-        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q.bfloat16(), q)
+        fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q.bfloat16(), q, lse)
+    for bad in (None, lse[:, :1], lse.double(), lse.cpu()):   # no lse, or not the forward's
+        with pytest.raises(ValueError):
+            fa_ops.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q, bad)
+
+
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_forward_lse_matches_plain(cuda, B, S, H, KV, hd, causal, window, dtype):
+    """The lse each forward kernel stores (fa_fwd_sm90 for bf16 at 64 and
+    128, fa_fwd_kernel otherwise) against attention_lse_ref; the output is
+    the same as without lse, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q = torch.randn(B, H, S, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, generator=g, device=cuda).to(dtype)
+    out, lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    want = attention_lse_ref(q, k, v, causal=causal, window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    err = float((lse - want).abs().max())
+    assert err <= LSE_TOL, err
+
+
+SM90_BWD_GROUPS = [(2, 2), (4, 2), (10, 2), (12, 2), (16, 2)]   # groups 1, 2, 5, 6, 8
+
+
+@pytest.mark.parametrize("causal,window", SM90_MASKS)
+@pytest.mark.parametrize("H,KV", SM90_BWD_GROUPS)
+@pytest.mark.parametrize("S", [40, 384, 520])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_sm90_bwd_matches_plain(cuda, hd, S, H, KV, causal, window):
+    """The tensor-core backward at ragged lengths, every cluster size of
+    the configs and the masks, fed the forward kernel's output and lse."""
+    q, k, v, do = _bwd_inputs(2, S, H, KV, hd, torch.bfloat16, S * 7 + H, cuda)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    before = fa_ops.flash_attention_bwd.launches_sm90
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches_sm90 == before + 1
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    for name, gg, ww in zip("qkv", got, want):
+        assert gg.dtype == torch.bfloat16 and gg.shape == ww.shape, name
+        assert bool(torch.isfinite(gg.float()).all()), name
+        assert _rel(gg, ww) <= BWD_TOL[torch.bfloat16], (name, _rel(gg, ww))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [(4, 512, 12, 2, 128, 0),
+                                                 (4, 512, 25, 5, 64, 2048)])
+def test_flash_sm90_bwd_two_calls_bit_identical(cuda, B, S, H, KV, hd, window):
+    """No atomics: the G heads' dK and dV are summed in a fixed order."""
+    q, k, v, do = _bwd_inputs(B, S, H, KV, hd, torch.bfloat16, 3, cuda)
+    o, lse = fa_ops.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+    first = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
+    second = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,hd,H,kernel", [
+    (torch.bfloat16, 64, 4, "sm90"), (torch.bfloat16, 128, 12, "sm90"),
+    (torch.bfloat16, 64, 16, "sm90"), (torch.bfloat16, 64, 18, "simt"),
+    (torch.float32, 64, 4, "simt"), (torch.float32, 128, 4, "simt"),
+    (torch.bfloat16, 16, 4, "simt"), (torch.bfloat16, 32, 4, "simt"),
+])
+def test_flash_bwd_launch_goes_to_the_kernel_of_its_type(cuda, dtype, hd, H, kernel):
+    """bf16 at head_dim 64 or 128 with at most 8 query heads per KV head
+    (here KV 2) runs the tensor-core backward, everything else the
+    CUDA-core one; each call counts once, on its route."""
+    q = torch.randn(1, H, 128, hd, device=cuda).to(dtype)
+    k = torch.randn(1, 2, 128, hd, device=cuda).to(dtype)
+    o, lse = fa_ops.flash_attention(q, k, k, return_lse=True)
+    fb = fa_ops.flash_attention_bwd
+    before = (fb.launches, fb.launches_sm90, fb.launches_simt)
+    fb(q, k, k, o, o, lse)
+    torch.cuda.synchronize()
+    sm90 = int(kernel == "sm90")
+    assert (fb.launches, fb.launches_sm90, fb.launches_simt) == (
+        before[0] + 1, before[1] + sm90, before[2] + 1 - sm90)
 
 
 def _leaf_rel(a: torch.Tensor, b: torch.Tensor) -> float:

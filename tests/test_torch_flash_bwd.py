@@ -10,6 +10,10 @@ sums in another order); bf16 to 2e-2 (seen: 6.3e-3; the gradients round to
 bf16, 3.9e-3 of a value, and ``attention_bwd_ref`` takes D from the bf16
 output where JAX's vjp keeps the float32 one). The kernel itself runs only
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+``attention_lse_ref`` (the plain version of the log-sum-exp the forward
+kernels store for the backward) against ``jax.nn.logsumexp`` of the masked
+scaled scores that the JAX ``attention_ref`` forms, at the same cases.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +24,8 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.models.attention import attention_xla as jattention_xla
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.models.attention import attention_xla
 
 FLASH_CASES = [  # tests/kernels/test_flash_attention.py
@@ -103,3 +108,41 @@ def test_attention_bwd_ref_is_autograd_of_attention_ref():
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def _jax_masked_scores(q, k, *, causal, window):
+    """The masked scaled scores of the JAX ``attention_ref``, formed as it
+    forms them (``src/repro/kernels/flash_attention/ref.py``)."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, hd)
+    s = jnp.einsum("bkgqd,bksd->bkgqs", qg.astype(jnp.float32), k.astype(jnp.float32))
+    s = s / jnp.sqrt(jnp.float32(hd))
+    q_pos, k_pos = jnp.arange(Sq)[:, None], jnp.arange(Sk)[None, :]
+    ok = jnp.ones((Sq, Sk), bool)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    return jnp.where(ok[None, None, None], s, -1e30).reshape(B, H, Sq, Sk)
+
+
+# lse against jax.nn.logsumexp, max |diff| (lse values are of order 1-10):
+# both sides compute in float32 from the same (bf16-rounded) inputs, so
+# float32 and bf16 differ only by sums in another order (seen: 9.5e-7, one
+# float32 ulp at lse ~ 8, in both); 1e-5 for both.
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_lse_ref_matches_jax_logsumexp(B, S, H, KV, hd, causal, window, dtype):
+    tdt, jdt, _ = DTYPES[dtype]
+    q, k, v, _ = _attn_inputs(B, S, H, KV, hd)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = attention_lse_ref(tq, tk, tv, causal=causal, window=window)
+    want = jax.nn.logsumexp(_jax_masked_scores(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                               causal=causal, window=window), axis=-1)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, S)
+    err = float(np.max(np.abs(got.numpy() - np.asarray(want))))
+    assert err <= LSE_TOL[dtype], err

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one training step of the port goes, at full width and depth.
 
-  python3 tools/train_profile.py [--arch NAME] [--layers N] [--steps N]
+  python3 tools/train_profile.py [--arch NAME] [--layers N] [--steps N] [--src DIR]
 
 Initialises the model's float32 weights and AdamW state on the card from
 seed 0 (no file system) and runs ``models.runtime.make_train_step`` on
@@ -9,6 +9,8 @@ seed 0 (no file system) and runs ``models.runtime.make_train_step`` on
 cross-entropy chunk of 512), as ``chip_smoke.py``'s training phase does.
 After ``--steps`` warm-up steps it prints:
 
+  * three whole steps, each timed by the host clock around it ending in
+    ``torch.cuda.synchronize()``;
   * the step's two halves timed apart, host clock around each ending in
     ``torch.cuda.synchronize()``: the loss and its gradients
     (``loss_fn`` + ``torch.autograd.grad``) and the AdamW update;
@@ -18,7 +20,9 @@ After ``--steps`` warm-up steps it prints:
     and backward, matrix products, the rest), the share of the step's
     wall time the device was busy, and the ten kernels that took longest.
 
-Needs a CUDA card and ``nvcc``; ``--layers`` cuts the depth.
+Needs a CUDA card and ``nvcc``; ``--layers`` cuts the depth. ``--src``
+points at another checkout's ``src`` (an unpacked parent commit), so that
+two versions can be compared in one run on one card.
 """
 from __future__ import annotations
 
@@ -50,8 +54,9 @@ def main() -> int:
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--layers", type=int, default=0, help="cut the depth (0: the config's)")
     ap.add_argument("--steps", type=int, default=2, help="warm-up steps before timing")
+    ap.add_argument("--src", default=str(ROOT / "src"))
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -68,7 +73,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
-    print(smi.stdout.strip())
+    print(f"{smi.stdout.strip()}; src {args.src}")
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
@@ -83,6 +88,15 @@ def main() -> int:
     for i in range(args.steps):
         state, _ = step(state, synth_batch(dcfg, i))
     torch.cuda.synchronize()
+    secs = []
+    for i in range(3):
+        batch = synth_batch(dcfg, args.steps + i)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(f"{cfg.name}, {cfg.num_layers} layers, B{B} x S{S}: whole steps "
+          f"{', '.join(f'{t:.4f}' for t in secs)} s")
 
     # the two halves of make_train_step, apart
     batch = batch_to_device(synth_batch(dcfg, args.steps), "cuda")
