@@ -9,7 +9,8 @@ non-zero at the first failure:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels (flash attention forward and backward, block
-     delta, selective scan), one ``nvcc`` per source, all at once;
+     delta, selective scan forward and backward), one ``nvcc`` per source,
+     all at once;
   3. flash attention: the kernels against their plain version at the JAX
      kernel tests' cases in float32 (CUDA-core kernel) and bf16
      (tensor-core kernel) and at the two serving shapes (qwen2-1.5b: B 4,
@@ -34,12 +35,18 @@ non-zero at the first failure:
   6. selective scan: the kernel against its plain version at the JAX
      kernel tests' cases in float32 and bf16 and at the hymba-1.5b serving
      shape (B 4, S 512, Di 3200, N 16, x bf16; y and the last state);
-     kernel and plain times;
+     kernel and plain times; then the scan backward kernel, fed the chunk
+     states the forward kernel saves, against its plain version
+     (``selective_scan_bwd_ref``) at the same cases, in float32 and bf16,
+     with and without h0 and a gradient on the last state, and at
+     hymba-1.5b's training shape (x and dy bf16), two calls bit-identical;
+     kernel (eager and CUDA graph) and plain times, and the forward's device
+     time without and with the chunk states;
   7. small inputs: the reduced qwen2-1.5b, hymba-1.5b and falcon-mamba-7b
      serving computations in float32 on the card (kernels) against the
-     same on the CPU, and one float32 train step of the reduced qwen2-1.5b
-     on the card against the same on the CPU (loss, each leaf's gradient,
-     the new params);
+     same on the CPU, and one float32 train step of each on the card
+     (flash and scan kernels in both directions) against the same on the
+     CPU (loss, each leaf's gradient, the new params);
   8. the serving slice at full width, first qwen2-1.5b (28 layers, 1.54 G
      float32 parameters), then, after its trees are freed, hymba-1.5b (32
      hybrid layers, 1.66 G): publish, refresh, serve 4 x 512-token prompts
@@ -48,17 +55,20 @@ non-zero at the first failure:
      attention must go to the tensor-core kernel, every block delta to the
      cluster kernel), the seconds of dirty detection, and its results
      checked;
-  9. the training slice: three train steps of qwen2-1.5b at full width and
-     depth on the card (B 4 x S 512 from ``synth_batch``, bf16 compute,
-     remat), outside FaaSFS, with seconds, tokens/s, peak device memory and
-     the flash launches per kernel (every forward on the tensor-core
-     kernel, 56 forward and 28 backward launches a step, every backward on
-     the tensor-core route), then one step
-     with the plain attention from the same state (loss and grad norm
-     compared); then ``launch/train.run`` at full width with the depth cut
-     to 4 layers (the FaaSFS stack is host Python): init, 2 transactional
-     steps, a full checkpoint, 1 step, a delta checkpoint, a restore, and
-     prefill + 32 greedy tokens served from the restored params, with every
+  9. the training slice: three train steps of qwen2-1.5b, then, after its
+     trees are freed, of hymba-1.5b, at full width and depth on the card
+     (B 4 x S 512 from ``synth_batch``, bf16 compute, remat), outside
+     FaaSFS, with seconds, tokens/s, peak device memory and the launches
+     per kernel (every flash forward on the tensor-core kernel, two a layer
+     with the remat recompute, one flash backward a layer on the
+     tensor-core route; for hymba-1.5b also two scan forward and one scan
+     backward launches a layer), then one step with the plain attention and
+     scan from the state before the third (no flash or scan launch; loss
+     and grad norm compared); then ``launch/train.run`` for qwen2-1.5b at
+     full width with the depth cut to 4 layers (the FaaSFS stack is host
+     Python): init, 2 transactional steps, a full checkpoint, 1 step, a
+     delta checkpoint, a restore, and prefill + 32 greedy tokens served
+     from the restored params, with every
      dirty set held against the exact byte compare and ``blocks_written``,
      the restore against the trainer's state and the served params against
      the restore, bit for bit;
@@ -68,11 +78,12 @@ non-zero at the first failure:
      and bound are at the qwen2-1.5b serving shapes for flash attention and
      block delta (the hymba-1.5b ones are printed beside them), at the
      qwen2-1.5b training shape for the flash backward and at the
-     hymba-1.5b shape for the selective scan. ``ms``, ``plain_ms`` and
-     ``library_ms`` are eager times per call, which include the wrappers'
-     host work; ``device_ms`` and ``library_device_ms`` are device times of
-     the kernel calls and of SDPA (20 calls, 5 per block-delta leaf,
-     captured in a CUDA graph and replayed).
+     hymba-1.5b shape for the selective scan and its backward. ``ms``,
+     ``plain_ms`` and ``library_ms`` are eager times per call, which
+     include the wrappers' host work; ``device_ms`` and
+     ``library_device_ms`` are device times of the kernel calls and of
+     SDPA (20 calls, 5 per block-delta leaf, captured in a CUDA graph and
+     replayed).
 
 Without a CUDA device, or outside a checkout, it exits 1 and prints no
 result line. The kernels build into ``build/kernels`` of the checkout.
@@ -646,6 +657,126 @@ def scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref):
     return entry
 
 
+# Scan backward, kernel against selective_scan_bwd_ref, max |diff| over the
+# gradient's largest |value|; stated before the first run on the card:
+# float32 gradients sum in another order (5.1e-7 seen between the plain
+# version and jax.vjp on the CPU); dx rounds to bf16 when x is bf16, where
+# one ulp is up to 7.8e-3 of a value.
+SCAN_BWD_TOL = {"float32": 1e-4, "dx_bf16": 2e-2}
+SCAN_GRADS = ("dx", "ddt", "db", "dc", "da", "dd", "dh0")
+# float32 operations of the scan backward per (b, t, d, n): the state again
+# (dt A, (dt x) B, one FMA: 4) and the reverse step (g += C dy, the dC and
+# dB terms and their sums over d, sum_n g B, g Abar h, the ddt and dA FMAs,
+# Abar g: 15); one expf
+SCAN_BWD_FLOPS = 19
+
+
+def scan_bwd_phase(torch, scan_ops, selective_scan_ref, selective_scan_bwd_ref):
+    import torch.nn.functional as F
+
+    def inputs(B, S, Di, N, dtype, with_state, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(B, S, Di, generator=g, device="cuda")
+        dt = F.softplus(torch.randn(B, S, Di, generator=g, device="cuda") * 0.5 - 1.0)
+        b = torch.randn(B, S, N, generator=g, device="cuda")
+        c = torch.randn(B, S, N, generator=g, device="cuda")
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device="cuda"))
+        a = -torch.exp(a_log.repeat(Di, 1).bfloat16().float())
+        d = torch.randn(Di, generator=g, device="cuda")
+        dy = torch.randn(B, S, Di, generator=g, device="cuda").to(dtype)
+        h0 = 0.5 * torch.randn(B, Di, N, generator=g, device="cuda") if with_state else None
+        dh = torch.randn(B, Di, N, generator=g, device="cuda") if with_state else None
+        return x.to(dtype), dt, b, c, a, d, h0, dy, dh
+
+    def errors(args, tag):
+        """Kernel against the plain version: {gradient: rel err}, the
+        largest absolute error; the kernel's gradients and chunk states.
+        Two calls must give the same bits."""
+        x, dt, b, c, a, d, h0, dy, dh = args
+        _, _, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
+        got = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+        again = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+        same = all(torch.equal(u.reshape(-1).view(torch.uint8),
+                               v.reshape(-1).view(torch.uint8)) for u, v in zip(got, again))
+        check(same, f"ssm_scan_bwd {tag}: two calls on the same inputs differ")
+        want = selective_scan_bwd_ref(x, dt, b, c, a, d, dy, h0=h0, dh_last=dh)
+        errs, worst_abs = {}, 0.0
+        for name, gg, ww in zip(SCAN_GRADS, got, want):
+            if name == "dh0" and h0 is None:
+                continue
+            check(gg.dtype == ww.dtype and gg.shape == ww.shape
+                  and bool(torch.isfinite(gg.float()).all()), f"ssm_scan_bwd {tag}: bad {name}")
+            diff = float((gg.float() - ww.float()).abs().max())
+            errs[name] = diff / max(float(ww.float().abs().max()), 1e-30)
+            tol = SCAN_BWD_TOL["dx_bf16" if name == "dx" and x.dtype == torch.bfloat16
+                               else "float32"]
+            check(errs[name] <= tol, f"ssm_scan_bwd {tag}: {name} rel err {errs[name]} > {tol}")
+            worst_abs = max(worst_abs, diff)
+        return errs, worst_abs, hc
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for case in SCAN_CASES:
+            for with_state in (False, True):
+                tag = f"{name} case {case}{' h0 dh_last' if with_state else ''}"
+                errs, _, _ = errors(inputs(*case, dtype, with_state, 3), tag)
+                for k, e in errs.items():
+                    worst[(name, k)] = max(worst.get((name, k), 0.0), e)
+    phase("ssm_scan_bwd", "4 reference cases x {float32, bf16} x {no h0, h0 + dh_last} within "
+                          "tolerance, two calls bit-identical; max rel err: " + "; ".join(
+                              f"{n} " + " ".join(f"{k} {worst[(n, k)]:.1e}" for k in SCAN_GRADS)
+                              for n in ("float32", "bfloat16")))
+
+    # hymba-1.5b's training shape with the model's types: x and dy bf16,
+    # dt, B, C float32, A from A_log rounded to bf16; no h0, as in training
+    B, S, Di, N = 4, 512, 3200, 16
+    args = inputs(B, S, Di, N, torch.bfloat16, False, 9)
+    x, dt, b, c, a, d, _, dy, _ = args
+    errs, worst_abs, hc = errors(args, "hymba-1.5b")
+    call = lambda: scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy,  # noqa: E731
+                                               chunk_states=hc)
+    ms = time_ms(call)
+    device_ms = time_ms(call, graph=True)
+    plain_ms = time_ms(lambda: selective_scan_bwd_ref(x, dt, b, c, a, d, dy, chunk_states=hc),
+                       iters=3, warmup=1)
+    # the forward as served (no chunk states) and as trained (with them)
+    fwd_ms = time_ms(lambda: scan_ops.selective_scan_fwd(x, dt, b, c, a, d), graph=True)
+    fwd_hc_ms = time_ms(lambda: scan_ops.selective_scan_fwd(x, dt, b, c, a, d,
+                                                            chunk_states=True), graph=True)
+    n = B * S * Di * N
+    # each once: x, dy, dx; dt, ddt; the chunk states; b, c, db, dc; a, d, da, dd
+    nbytes = (3 * x.numel() * x.element_size() + 4 * 2 * dt.numel() + 4 * hc.numel()
+              + 4 * 2 * (b.numel() + c.numel()) + 4 * 2 * (a.numel() + d.numel()))
+    flops = SCAN_BWD_FLOPS * n
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    t_exp = n / (n_sm * EX2_PER_CLOCK_SM * SM_CLOCK_HZ)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, max(flops / PEAK_F32_FLOPS, t_exp)
+    entry = {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "route_detail": "ssm_scan_bwd_kernel, then ssm_scan_bwd_sum_kernel",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+        "replaces": None,
+        "max_abs_err": worst_abs, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "library_device_ms": None,
+    }
+    phase("ssm_scan_bwd", f"hymba-1.5b: B{B} S{S} Di{Di} N{N} x and dy bf16: rel err "
+                          + " ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                          + f", max abs err {worst_abs:.3e}; two calls bit-identical; kernel "
+                          f"{ms:.4f} ms eager, {device_ms:.4f} ms device (CUDA graph); plain "
+                          f"{plain_ms:.3f} ms; bound {entry['bound_ms']:.4f} ms "
+                          f"({entry['bound_by']}; {nbytes / 1e6:.1f} MB take "
+                          f"{t_bytes * 1e3:.4f} ms, {flops / 1e9:.2f} GFLOP "
+                          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms, {n / 1e6:.1f} M expf "
+                          f"{t_exp * 1e3:.4f} ms); forward device time without / with chunk "
+                          f"states {fwd_ms:.4f} / {fwd_hc_ms:.4f} ms")
+    del args, x, dt, b, c, a, d, dy, hc
+    torch.cuda.empty_cache()
+    return entry
+
+
 def small_input_phase(torch, serve, M, cfg):
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     # larger matrices so that greedy decoding does not collapse at this width
@@ -676,7 +807,7 @@ def _grads(torch, M, cfg, params, batch, **kw):
     return float(metrics["loss"].detach()), dict(zip(ps, grads))
 
 
-def small_train_phase(torch, M, runtime, adamw, synth, cfg):
+def small_train_phase(torch, M, runtime, adamw, synth, counters, cfg):
     """One float32 train step of the reduced config on the card (kernels)
     and on the CPU (plain versions), and the gradients of the same loss."""
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -686,7 +817,13 @@ def small_train_phase(torch, M, runtime, adamw, synth, cfg):
                             compute_dtype=torch.float32)
     step = runtime.make_train_step(plan, adamw.AdamWConfig())
     new_c, m_c = step(state, batch)
+    bwd = (counters["flash_attention_bwd"], counters["ssm_scan_bwd"])
+    before = [c.launches for c in bwd]
     new_g, m_g = step(_tree(state, lambda t: t.cuda()), batch)
+    L = cfg.num_layers
+    want = [L if cfg.has_attention else 0, L if cfg.has_ssm else 0]
+    check([c.launches - b for c, b in zip(bwd, before)] == want,
+          f"small train {cfg.name}: backward launches (flash, scan) differ from {want}")
     kw = dict(compute_dtype=torch.float32, ce_chunk=32)
     loss_c, g_c = _grads(torch, M, cfg, params, runtime.batch_to_device(batch, "cpu"), **kw)
     loss_g, g_g = _grads(torch, M, cfg, _tree(params, lambda t: t.cuda()),
@@ -714,9 +851,16 @@ def small_train_phase(torch, M, runtime, adamw, synth, cfg):
 
 def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
     """Three train steps at full width and depth on the card, outside
-    FaaSFS; then one plain-attention step from the state before the third."""
+    FaaSFS; then one step with the plain attention and scan from the state
+    before the third."""
     B, S = 4, 512
     fa, fb = counters["flash_attention"], counters["flash_attention_bwd"]
+    sf, sb = counters["ssm_scan"], counters["ssm_scan_bwd"]
+
+    def split():
+        return (fa.launches_sm90, fa.launches_simt, fb.launches_sm90, fb.launches_simt,
+                sf.launches, sb.launches)
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -734,22 +878,23 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
         batch = synth(cfg, B, S, step=i)
         if i == 2:
             kept, kept_batch = state, batch
-        before = (fa.launches_sm90, fa.launches_simt, fb.launches_sm90, fb.launches_simt)
+        before = split()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         metrics.append(m)
-        launches.append(tuple(a - b for a, b in zip((fa.launches_sm90, fa.launches_simt,
-                                                     fb.launches_sm90, fb.launches_simt),
-                                                    before)))
+        launches.append(tuple(a - b for a, b in zip(split(), before)))
     path_launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_layers
+    # remat: two forward launches a layer, one backward
+    La, Ls = (L if cfg.has_attention else 0), (L if cfg.has_ssm else 0)
+    want = (2 * La, 0, La, 0, 2 * Ls, Ls)
     for i, got in enumerate(launches):
-        check(got == (2 * L, 0, L, 0), f"train step {i + 1}: flash launches (forward sm90, "
-                                       f"simt, backward sm90, simt) {got}, want "
-                                       f"{(2 * L, 0, L, 0)}")
+        check(got == want, f"train step {i + 1}: launches (flash forward sm90, simt, flash "
+                           f"backward sm90, simt, scan forward, scan backward) {got}, want "
+                           f"{want}")
     for m in metrics:
         check(all(math.isfinite(v) for v in m.values()), f"train step metrics not finite: {m}")
     del state
@@ -762,19 +907,20 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
                    f"{', '.join(f'{tokens / t:.0f}' for t in secs)}; loss "
                    f"{_join(m['loss'] for m in metrics)}; grad norm "
                    f"{_join(m['grad_norm'] for m in metrics)}; peak device memory "
-                   f"{peak:.1f} GiB; init {init_s:.1f} s; flash launches per step: "
+                   f"{peak:.1f} GiB; init {init_s:.1f} s; launches per step: flash "
                    f"{launches[0][0]} forward, all on fa_fwd_sm90 (CUDA-core "
                    f"{launches[0][1]}), {launches[0][2]} backward, all on the tensor-core "
-                   f"route (CUDA-core {launches[0][3]})")
+                   f"route (CUDA-core {launches[0][3]}); scan {launches[0][4]} forward, "
+                   f"{launches[0][5]} backward")
     plain = runtime.make_train_step(
         runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512,
-                         attn_impl="plain"), opt_cfg)
-    before = (fa.launches, fb.launches)
+                         attn_impl="plain", scan_impl="plain"), opt_cfg)
+    before = split()
     t0 = time.perf_counter()
     new, m_plain = plain(kept, kept_batch)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    check((fa.launches, fb.launches) == before, "the plain step launched a flash kernel")
+    check(split() == before, "the plain step launched a flash or scan kernel")
     del new, kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -783,7 +929,8 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, cfg):
     r_norm = abs(m_k["grad_norm"] - m_plain["grad_norm"]) / abs(m_plain["grad_norm"])
     check(r_loss <= TRAIN_LOSS_REL and r_norm <= TRAIN_GNORM_REL,
           f"train step 3, kernel vs plain path: loss rel {r_loss}, grad norm rel {r_norm}")
-    phase("train", f"step 3 kernel path vs plain attention path from the same state: loss "
+    phase("train", f"{cfg.name} step 3, kernel path vs plain path (attention and scan) from "
+                   f"the same state: loss "
                    f"{m_k['loss']:.6f} vs {m_plain['loss']:.6f} (rel {r_loss:.2e}, bound "
                    f"{TRAIN_LOSS_REL}), grad norm {m_k['grad_norm']:.6f} vs "
                    f"{m_plain['grad_norm']:.6f} (rel {r_norm:.2e}, bound {TRAIN_GNORM_REL}); "
@@ -1087,7 +1234,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan import ops as scan_ops
-    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan.ref import (selective_scan_bwd_ref, selective_scan_ref,
+                                                  ssm_scan_ref)
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
     from repro_torch.launch import serve, train
@@ -1110,7 +1258,8 @@ def main() -> int:
 
     counters = {"flash_attention": fa_ops.flash_attention,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd,
-                "block_delta": bd_ops.block_delta, "ssm_scan": scan_ops.selective_scan_fwd}
+                "block_delta": bd_ops.block_delta, "ssm_scan": scan_ops.selective_scan_fwd,
+                "ssm_scan_bwd": scan_ops.selective_scan_bwd}
     paths = [get_config("qwen2-1.5b"), get_config("hymba-1.5b")]
     try:
         t0 = time.perf_counter()
@@ -1134,17 +1283,22 @@ def main() -> int:
                                       block_elems, cfg.name)
             entries.setdefault("block_delta", delta)
         entries["ssm_scan"] = scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref)
-        for cfg in paths + [get_config("falcon-mamba-7b")]:
-            small_input_phase(torch, serve, M, reduced_config(cfg))
-        small_train_phase(torch, M, runtime, adamw, synth, reduced_config(paths[0]))
+        entries["ssm_scan_bwd"] = scan_bwd_phase(torch, scan_ops, selective_scan_ref,
+                                                 selective_scan_bwd_ref)
+        small = [reduced_config(cfg) for cfg in paths + [get_config("falcon-mamba-7b")]]
+        for cfg in small:
+            small_input_phase(torch, serve, M, cfg)
+        for cfg in small:
+            small_train_phase(torch, M, runtime, adamw, synth, counters, cfg)
         by_path = {}
         for cfg in paths:
             _free_host_and_device(torch)
             by_path[cfg.name] = full_width_phase(torch, serve, M, counters, bridge,
                                                  exact_dirty_blocks, flatten_with_names, cfg)
-        _free_host_and_device(torch)
-        by_path["train " + paths[0].name] = train_full_phase(
-            torch, M, runtime, adamw, synth, counters, paths[0])
+        for cfg in paths:
+            _free_host_and_device(torch)
+            by_path["train " + cfg.name] = train_full_phase(
+                torch, M, runtime, adamw, synth, counters, cfg)
         _free_host_and_device(torch)
         cut = dataclasses.replace(paths[0], num_layers=TXN_LAYERS)
         by_path[f"train_txn {paths[0].name} ({TXN_LAYERS} layers)"] = train_txn_phase(

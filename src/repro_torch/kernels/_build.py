@@ -33,6 +33,7 @@ SOURCES = {
     "flash_attention_bwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "block_delta": KERNELS_DIR / "block_delta" / "csrc" / "block_delta.cu",
     "ssm_scan": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "ssm_scan_bwd": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan_bwd.cu",
 }
 
 _lock = threading.Lock()

@@ -26,7 +26,11 @@
 // tensors (the serving shapes); any other S, Di or N takes the same
 // recurrence with element-wise synchronous copies. Any S and any Di work:
 // the last block's spare channels and the last chunk's spare steps are
-// computed on but never stored.
+// computed on but never stored. Under autograd the launch also writes the
+// state entering each chunk (h_chunks, (B, ceil(S / T), Di, N) float32,
+// 6.6 MB at hymba-1.5b's training shape), from which the backward kernel
+// (ssm_scan_bwd.cu) recomputes each chunk; serving passes null and skips
+// those stores.
 //
 // Bound. Per launch the function must move x, dt, y, B_, C, A, D and the
 // last h: 53.7 MB at the hymba-1.5b serving shape (B 4, S 512, Di 3200,
@@ -42,44 +46,23 @@
 // steps (U) is what hid most of it. Compile without --use_fast_math: the
 // plain version uses IEEE expf.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
 
+using scan::T;
+using scan::Split;
+using scan::to_f32;
+using scan::from_f32;
+using scan::cp_async16;
+using scan::cp_async_commit;
+using scan::cp_async_wait;
+using scan::load_states;
+using scan::aligned16;
+
 constexpr int CH = 64;    // channels per block
-constexpr int T = 64;     // steps per staged chunk
 constexpr int U = 8;      // steps whose loads are issued together
-static_assert(CH % 8 == 0 && T % 4 == 0, "CH must be a multiple of 8, T of 4");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename Tx> __device__ __forceinline__ Tx from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-template <int N>
-struct Split {
-  static constexpr int TPC = N < 4 ? N : 4;   // threads per channel
-  static constexpr int SPT = N / TPC;         // states per thread
-};
+static_assert(CH % 8 == 0, "CH must be a multiple of 8");
 
 template <typename Tx, int N>
 __host__ __device__ constexpr int stage_bytes() {
@@ -142,21 +125,6 @@ __device__ __forceinline__ void load_chunk(const Stage<Tx, N>& st, const Tx* __r
   cp_async_commit();
 }
 
-// SPT floats of shared memory (16-byte aligned when SPT % 4 == 0).
-template <int SPT>
-__device__ __forceinline__ void load_states(float (&v)[SPT], const float* p) {
-  if constexpr (SPT % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < SPT; j += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + j);
-      v[j] = f.x, v[j + 1] = f.y, v[j + 2] = f.z, v[j + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) v[j] = p[j];
-  }
-}
-
 // U steps of the recurrence from a staged chunk, for one channel and SPT
 // states. The group's operands are read before anything is written and
 // its y written last, so the steps' expf, FMAs and shuffles can overlap
@@ -202,7 +170,7 @@ ssm_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ a, const float* __restrict__ dskip,
                 const float* __restrict__ h0, Tx* __restrict__ y,
-                float* __restrict__ h_last, int S, int Di) {
+                float* __restrict__ h_last, float* __restrict__ h_chunks, int S, int Di) {
   constexpr int TPC = Split<N>::TPC, SPT = Split<N>::SPT, NT = CH * TPC;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int SB = stage_bytes<Tx, N>();
@@ -230,6 +198,11 @@ ssm_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   for (int k = 0; k < n_chunks; ++k) {
     const Stage<Tx, N> st(smem + (k & 1) * SB);
     const int t0 = k * T, len = min(T, S - t0);
+    if (h_chunks != nullptr && live) {   // the state entering chunk k, for the backward
+      const int64_t cidx = (((int64_t)b * n_chunks + k) * Di + dd) * N + n0;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) h_chunks[cidx + j] = h[j];
+    }
     if (k + 1 < n_chunks) {
       const Stage<Tx, N> next(smem + ((k + 1) & 1) * SB);
       load_chunk<Tx, N, VEC>(next, x, dt, bm, cm, row_b + t0 + T, min(T, S - t0 - T), Di, d0,
@@ -274,7 +247,7 @@ ssm_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
 template <typename Tx, int N, bool VEC>
 cudaError_t launch_v(const void* x, const void* dt, const void* bm, const void* cm,
                      const void* a, const void* dskip, const void* h0, void* y, void* h_last,
-                     int B, int S, int Di, cudaStream_t stream) {
+                     void* h_chunks, int B, int S, int Di, cudaStream_t stream) {
   const int smem = 2 * stage_bytes<Tx, N>();
   cudaError_t err = cudaFuncSetAttribute(ssm_scan_kernel<Tx, N, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -284,53 +257,62 @@ cudaError_t launch_v(const void* x, const void* dt, const void* bm, const void* 
       static_cast<const Tx*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<const float*>(dskip),
-      static_cast<const float*>(h0), static_cast<Tx*>(y), static_cast<float*>(h_last), S, Di);
+      static_cast<const float*>(h0), static_cast<Tx*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(h_chunks), S, Di);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename Tx, int N>
 cudaError_t launch_n(const void* x, const void* dt, const void* bm, const void* cm,
                      const void* a, const void* dskip, const void* h0, void* y, void* h_last,
-                     int B, int S, int Di, cudaStream_t s) {
+                     void* h_chunks, int B, int S, int Di, cudaStream_t s) {
   if constexpr (N % 4 == 0) {
     if (Di % 8 == 0 && aligned16(x) && aligned16(dt) && aligned16(bm) && aligned16(cm) &&
         aligned16(y))
-      return launch_v<Tx, N, true>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+      return launch_v<Tx, N, true>(x, dt, bm, cm, a, dskip, h0, y, h_last, h_chunks, B, S, Di,
+                                   s);
   }
-  return launch_v<Tx, N, false>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+  return launch_v<Tx, N, false>(x, dt, bm, cm, a, dskip, h0, y, h_last, h_chunks, B, S, Di, s);
 }
 
 template <typename Tx>
 cudaError_t launch(const void* x, const void* dt, const void* bm, const void* cm,
                    const void* a, const void* dskip, const void* h0, void* y, void* h_last,
-                   int B, int S, int Di, int N, cudaStream_t s) {
+                   void* h_chunks, int B, int S, int Di, int N, cudaStream_t s) {
+#define REPRO_SCAN_CASE(n)                                                                   \
+  case n:                                                                                  \
+    return launch_n<Tx, n>(x, dt, bm, cm, a, dskip, h0, y, h_last, h_chunks, B, S, Di, s);
   switch (N) {
-    case 1: return launch_n<Tx, 1>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 2: return launch_n<Tx, 2>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 4: return launch_n<Tx, 4>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 8: return launch_n<Tx, 8>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 16: return launch_n<Tx, 16>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
-    case 32: return launch_n<Tx, 32>(x, dt, bm, cm, a, dskip, h0, y, h_last, B, S, Di, s);
+    REPRO_SCAN_CASE(1)
+    REPRO_SCAN_CASE(2)
+    REPRO_SCAN_CASE(4)
+    REPRO_SCAN_CASE(8)
+    REPRO_SCAN_CASE(16)
+    REPRO_SCAN_CASE(32)
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_SCAN_CASE
 }
 
 }  // namespace
 
 // x and y (B, S, Di) of one type, dtype 0 float32 or 1 bf16; dt (B, S, Di),
 // b and c (B, S, N), a (Di, N), d (Di,), h0 (B, Di, N) or null, h_last
-// (B, Di, N): all float32 and contiguous. N is 1, 2, 4, 8, 16 or 32.
-// Returns cudaGetLastError() after the launch.
+// (B, Di, N), h_chunks (B, ceil(S / 64), Di, N) or null: all float32 and
+// contiguous. N is 1, 2, 4, 8, 16 or 32. With h_chunks the kernel also
+// writes the state entering each chunk of 64 steps (h0 or 0 first), which
+// the backward (ssm_scan_bwd.cu) recomputes the chunks from; null skips
+// those stores. Returns cudaGetLastError() after the launch.
 extern "C" int repro_ssm_scan_fwd(const void* x, const void* dt, const void* b, const void* c,
                                   const void* a, const void* d, const void* h0, void* y,
-                                  void* h_last, int B, int S, int Di, int N, int dtype,
-                                  void* stream) {
+                                  void* h_last, void* h_chunks, int B, int S, int Di, int N,
+                                  int dtype, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || Di <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, dt, b, c, a, d, h0, y, h_last, B, S, Di, N, s);
+  if (dtype == 0)
+    return (int)launch<float>(x, dt, b, c, a, d, h0, y, h_last, h_chunks, B, S, Di, N, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dt, b, c, a, d, h0, y, h_last, B, S, Di, N, s);
+    return (int)launch<__nv_bfloat16>(x, dt, b, c, a, d, h0, y, h_last, h_chunks, B, S, Di, N,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }

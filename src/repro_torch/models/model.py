@@ -324,13 +324,16 @@ def loss_fn(
     remat: bool = True,
     remat_policy: Optional[str] = None,
     attn_impl: str = "auto",
+    scan_impl: str = "auto",
 ):
     """Next-token cross-entropy (+ the auxiliary term). batch: tokens,
     labels, mask. Returns (total, {"loss", "aux_loss", "tokens"}), all
-    float32 scalar tensors, as the reference's ``loss_fn``."""
+    float32 scalar tensors, as the reference's ``loss_fn``. ``attn_impl``
+    and ``scan_impl`` choose the kernels ("auto") or the plain math
+    ("plain") on the card, as in ``forward_hidden``."""
     hidden, aux, _ = forward_hidden(
         cfg, params, batch["tokens"], compute_dtype=compute_dtype, q_chunk=q_chunk,
-        remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
+        remat=remat, remat_policy=remat_policy, attn_impl=attn_impl, scan_impl=scan_impl,
     )
     head = lm_head_weight(cfg, params).to(compute_dtype)
     nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],

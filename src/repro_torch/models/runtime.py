@@ -25,8 +25,9 @@ PyTree = Any
 @dataclass(frozen=True)
 class CellPlan:
     """One (arch x shape) cell on one device. ``compute_dtype`` is the
-    reference's ``loss_fn`` default, bf16; ``attn_impl="plain"`` runs the
-    plain attention math on the card, the on-card reference of the kernels."""
+    reference's ``loss_fn`` default, bf16; ``attn_impl="plain"`` and
+    ``scan_impl="plain"`` run the plain attention and scan math on the
+    card, the on-card reference of the kernels."""
 
     cfg: ModelConfig
     shape: ShapeCell
@@ -35,6 +36,7 @@ class CellPlan:
     remat: bool = True
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"
+    scan_impl: str = "auto"
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -82,7 +84,8 @@ def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
         with torch.enable_grad():
             total, metrics = M.loss_fn(
                 cfg, params, b, compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk,
-                ce_chunk=plan.ce_chunk, remat=plan.remat, attn_impl=plan.attn_impl)
+                ce_chunk=plan.ce_chunk, remat=plan.remat, attn_impl=plan.attn_impl,
+                scan_impl=plan.scan_impl)
             grads = torch.autograd.grad(total, ps)
         del params, ps, total
         grads = _unflatten([(path, g) for (path, _), g in zip(leaves, grads)])
@@ -99,7 +102,8 @@ def make_prefill_step(plan: CellPlan):
 
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):
         return M.prefill(cfg, params, batch["tokens"], compute_dtype=plan.compute_dtype,
-                         q_chunk=plan.q_chunk or 1024, attn_impl=plan.attn_impl)
+                         q_chunk=plan.q_chunk or 1024, attn_impl=plan.attn_impl,
+                         scan_impl=plan.scan_impl)
 
     return prefill_step
 

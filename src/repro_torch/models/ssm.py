@@ -5,7 +5,10 @@ associative scan inside each chunk bounds the (B, chunk, Di, N) tensors it
 materializes); here the scan is the selective-scan kernel on CUDA tensors
 and the plain sequential recurrence on the CPU or with ``impl="plain"``
 (``repro_torch.kernels.ssm_scan``). Neither materializes per-step
-tensors larger than (B, Di, N), so there is no chunk size. Decode is the
+tensors larger than (B, Di, N), so there is no chunk size. Under autograd
+the default path is ``SelectiveScanFn`` (the backward kernel on the card,
+its plain version on the CPU); ``impl="plain"`` leaves the recurrence to
+autograd on any device, with no kernel launch. Decode is the
 O(1) single-step recurrence, plain PyTorch everywhere, as in the reference.
 The casts follow the reference's (bf16 conv and projections, float32
 scan), so bf16 drifts from JAX only where the two frameworks round.
@@ -63,8 +66,10 @@ def selective_scan(
 
     x: (B, S, Di); dt: (B, S, Di); B_/C: (B, S, N); A: (Di, N) (negative);
     D: (Di,) skip. Returns (y (B,S,Di) in x.dtype, h_last (B,Di,N) fp32).
-    ``impl="auto"`` runs the kernel on CUDA tensors and the plain recurrence
-    on the CPU; ``impl="plain"`` runs the plain recurrence on any device.
+    ``impl="auto"`` runs the kernels on CUDA tensors and the plain versions
+    on the CPU, through ``SelectiveScanFn`` when autograd records;
+    ``impl="plain"`` runs the plain recurrence on any device, differentiated
+    by autograd.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")

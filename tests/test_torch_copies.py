@@ -35,7 +35,7 @@ COPIED = (
     [f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))]
     + [f"core/{m}.py" for m in ("__init__", "types", "api", "blockstore", "obs", "backend",
                                  "client", "posix", "runtime", "arena", "tensorstate")]
-    + ["serving/engine.py", "data/pipeline.py"]
+    + ["serving/engine.py", "data/pipeline.py", "train/elastic.py"]
 )
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 

@@ -17,7 +17,11 @@ call on the tensor-core route, block delta (cluster and
 two-pass kernels) with q equal as int8, scale and the dirty flag equal and
 norm2 to rtol 1e-5 (sums in another order; NaN equal), the selective
 scan to 2e-4 in float32 and 1e-1 in bf16 on y (tests/kernels/test_ssm_scan.py)
-and to 2e-4 on the last state.
+and to 2e-4 on the last state and the chunk states it saves for training,
+and the scan backward to 1e-4 of each gradient's largest value (2e-2 for dx
+when x is bf16), bit-identical from call to call. The reduced train steps
+of qwen2-1.5b, hymba-1.5b and falcon-mamba-7b on the card (kernels in both
+directions) match the same steps on the CPU.
 """
 import numpy as np
 import pytest
@@ -31,10 +35,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
                                                      attention_ref)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
-from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 from repro_torch.launch import serve
 from repro_torch.configs.base import ShapeCell
 from repro_torch.models import model as M
+from repro_torch.models import ssm as ssm_model
 from repro_torch.models.runtime import CellPlan, make_train_step
 from repro_torch.optim import adamw
 from repro_torch.state.checkpoint import dirty_block_indices, exact_dirty_blocks
@@ -347,13 +352,50 @@ def _train_batch(cfg):
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
-def test_ssm_training_on_card_raises(cuda, arch):
+def test_ssm_training_on_card_matches_cpu(cuda, arch):
+    """One float32 train step of the reduced hybrid and ssm configs on the
+    card (scan forward and backward kernels, flash kernels for hymba) and
+    on the CPU (plain versions), held as the qwen2-1.5b step is."""
     cfg = reduced_config(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = _train_batch(cfg)
+    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                                    compute_dtype=torch.float32), adamw.AdamWConfig())
+    new_c, m_c = step(state, batch)
+    sf, sb = scan_ops.selective_scan_fwd, scan_ops.selective_scan_bwd
+    fa, fb = fa_ops.flash_attention, fa_ops.flash_attention_bwd
+    before = (sf.launches, sb.launches, fa.launches, fb.launches)
+    new_g, m_g = step(_to(state, cuda), batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    attn = L if cfg.has_attention else 0
+    assert (sf.launches, sb.launches, fa.launches, fb.launches) == (
+        before[0] + 2 * L, before[1] + L, before[2] + 2 * attn, before[3] + attn)
+    assert m_g["loss"] == pytest.approx(m_c["loss"], rel=1e-5)
+    assert m_g["grad_norm"] == pytest.approx(m_c["grad_norm"], rel=1e-5)
+    for name, t in flat_tensors(new_g["opt"]["m"]).items():
+        assert _leaf_rel(t, flat_tensors(new_c["opt"]["m"])[name]) <= 1e-4, name
+    for name, t in flat_tensors(new_g["params"]).items():
+        m = flat_tensors(new_c["opt"]["m"])[name].abs()
+        big = m > 1e-3 * m.max()
+        diff = (t.cpu() - flat_tensors(new_c["params"])[name]).abs()
+        assert float(diff[big].max()) <= 1e-6, name
+
+
+def test_plain_scan_train_step_on_card_launches_no_scan_kernel(cuda):
+    cfg = reduced_config(get_config("hymba-1.5b"))
     params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
     state = {"params": params, "opt": adamw.init_opt_state(params)}
-    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2)), adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError):
-        step(state, _train_batch(cfg))
+    plan = CellPlan(cfg, ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                    compute_dtype=torch.float32, attn_impl="plain", scan_impl="plain")
+    counters = (scan_ops.selective_scan_fwd, scan_ops.selective_scan_bwd,
+                fa_ops.flash_attention, fa_ops.flash_attention_bwd)
+    before = [c.launches for c in counters]
+    _, metrics = make_train_step(plan, adamw.AdamWConfig())(state, _train_batch(cfg))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
 
 
 @pytest.mark.parametrize("nb,be", [(4, 128), (8, 256), (16, 512), (1, 1024), (3, 65536),
@@ -618,6 +660,136 @@ def test_ssm_scan_kernel_refuses_unsupported_state_size(cuda):
     x, dt, b, c, a_log, d = _scan_inputs(1, 8, 16, 12, cuda)
     with pytest.raises(ValueError):
         scan_ops.selective_scan_fwd(x, dt, b, c, -torch.exp(a_log), d)
+
+
+# Scan backward, kernel against selective_scan_bwd_ref, max |diff| over the
+# gradient's largest |value|: float32 sums in another order; dx rounds to
+# bf16 when x is bf16.
+SCAN_BWD_TOL = {"float32": 1e-4, "dx_bf16": 2e-2}
+SCAN_GRADS = ("dx", "ddt", "db", "dc", "da", "dd", "dh0")
+
+
+def _scan_bwd_inputs(B, S, Di, N, dtype, with_state, device, seed=5):
+    x, dt, b, c, a_log, d = _scan_inputs(B, S, Di, N, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    a = -torch.exp(a_log) * torch.exp(0.1 * torch.randn(Di, N, generator=g, device=device))
+    d = torch.randn(Di, generator=g, device=device)
+    dy = torch.randn(B, S, Di, generator=g, device=device).to(dtype)
+    h0 = 0.5 * torch.randn(B, Di, N, generator=g, device=device) if with_state else None
+    dh = torch.randn(B, Di, N, generator=g, device=device) if with_state else None
+    return x.to(dtype), dt, b, c, a, d, h0, dy, dh
+
+
+def _scan_bwd_errors(got, want, with_h0):
+    """{gradient: max |diff| / its largest |value|}, dh0 only with h0."""
+    out = {}
+    for name, gg, ww in zip(SCAN_GRADS, got, want):
+        if name == "dh0" and not with_h0:
+            continue
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape, name
+        assert bool(torch.isfinite(gg.float()).all()), name
+        out[name] = float((gg.float() - ww.float()).abs().max()
+                          / ww.float().abs().max().clamp_min(1e-30))
+    return out
+
+
+def _scan_bwd_within(errs, dtype) -> bool:
+    return all(e <= (SCAN_BWD_TOL["dx_bf16"] if n == "dx" and dtype == torch.bfloat16
+                     else SCAN_BWD_TOL["float32"]) for n, e in errs.items())
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["no_h0", "h0_dh_last"])
+@pytest.mark.parametrize("B,S,Di,N", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, B, S, Di, N, dtype, with_state):
+    x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(B, S, Di, N, dtype, with_state, cuda)
+    y, h_last, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
+    before = scan_ops.selective_scan_bwd.launches
+    got = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan_bwd.launches == before + 1
+    want = selective_scan_bwd_ref(x, dt, b, c, a, d, dy, h0=h0, dh_last=dh)
+    errs = _scan_bwd_errors(got, want, with_state)
+    assert _scan_bwd_within(errs, dtype), errs
+
+
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("Di", [48, 3216])
+@pytest.mark.parametrize("S", [1, 63, 65, 520])
+def test_ssm_scan_bwd_staged_chunks_match_plain(cuda, S, Di, N):
+    """Sequence lengths around the 64-step chunk and its 8-step sub-chunks,
+    channel counts around the 64-channel block, x bf16 as trained."""
+    x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(2, S, Di, N, torch.bfloat16, True, cuda,
+                                                     seed=S + Di)
+    _, _, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
+    got = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+    want = selective_scan_bwd_ref(x, dt, b, c, a, d, dy, h0=h0, dh_last=dh)
+    errs = _scan_bwd_errors(got, want, True)
+    assert _scan_bwd_within(errs, torch.bfloat16), errs
+
+
+@pytest.mark.parametrize("B,S,Di,N", [(4, 512, 3200, 16), (3, 33, 100, 16), (1, 17, 5, 32)])
+def test_ssm_scan_bwd_two_calls_bit_identical(cuda, B, S, Di, N):
+    x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(B, S, Di, N, torch.bfloat16, True, cuda)
+    _, _, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
+    first = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+    again = scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc, dh_last=dh)
+    torch.cuda.synchronize()
+    for name, u, v in zip(SCAN_GRADS, first, again):
+        assert torch.equal(u.reshape(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8)), name
+
+
+@pytest.mark.parametrize("B,S,Di,N", [(2, 130, 48, 16), (1, 64, 100, 8), (4, 512, 3200, 16)])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_h0", "h0"])
+def test_ssm_scan_forward_chunk_states_match_plain(cuda, B, S, Di, N, with_h0):
+    """The states the forward saves for the backward, against the plain
+    version's; saving them leaves y and the last state as they were."""
+    x, dt, b, c, a, d, h0, _, _ = _scan_bwd_inputs(B, S, Di, N, torch.bfloat16, with_h0, cuda)
+    y0, h_0 = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0)
+    y, h_last, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y0) and torch.equal(h_last, h_0)
+    _, _, hr = selective_scan_ref(x, dt, b, c, a, d, h0=h0, return_chunk_states=True)
+    assert hc.shape == hr.shape == (B, -(-S // 64), Di, N)
+    assert float((hc - hr).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_fn_on_card_matches_plain_autograd(cuda, dtype):
+    """Autograd through the model's scan on the card (one forward launch
+    with chunk states, one backward launch) against autograd of the plain
+    recurrence on the card."""
+    x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(2, 130, 96, 16, dtype, True, cuda)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, b, c, a, d, h0)]
+    sf, sb = scan_ops.selective_scan_fwd, scan_ops.selective_scan_bwd
+    before = (sf.launches, sb.launches)
+    y, h_last = ssm_model.selective_scan(*ins[:6], h0=ins[6])
+    got = torch.autograd.grad([y, h_last], ins, [dy, dh])
+    torch.cuda.synchronize()
+    assert (sf.launches, sb.launches) == (before[0] + 1, before[1] + 1)
+    ref_ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, b, c, a, d, h0)]
+    yr, hr = ssm_model.selective_scan(*ref_ins[:6], h0=ref_ins[6], impl="plain")
+    assert (sf.launches, sb.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad([yr, hr], ref_ins, [dy, dh])
+    errs = _scan_bwd_errors(got, want, True)
+    assert _scan_bwd_within(errs, dtype), errs
+
+
+def test_ssm_scan_bwd_refuses_what_it_does_not_take(cuda):
+    x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(1, 8, 16, 8, torch.float32, True, cuda)
+    _, _, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, chunk_states=True)
+    with pytest.raises(ValueError):      # tensors on the CPU
+        scan_ops.selective_scan_bwd(*(t.cpu() for t in (x, dt, b, c, a, d, dy)),
+                                    chunk_states=hc.cpu())
+    with pytest.raises(ValueError):      # chunk states of another length
+        scan_ops.selective_scan_bwd(x, dt, b, c, a, d, dy, chunk_states=hc[:, :0])
+    x12, dt12, b12, c12, a12, d12, _, dy12, _ = _scan_bwd_inputs(1, 8, 16, 12, torch.float32,
+                                                                 False, cuda)
+    hc12 = torch.zeros(1, 1, 16, 12, device=cuda)
+    with pytest.raises(ValueError):      # N = 12 is not a state size of the kernels
+        scan_ops.selective_scan_bwd(x12, dt12, b12, c12, a12, d12, dy12, chunk_states=hc12)
+    with pytest.raises(TypeError):       # float16 x
+        scan_ops.selective_scan_bwd(x.half(), dt, b, c, a, d, dy.half(), chunk_states=hc)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b"])

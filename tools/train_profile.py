@@ -17,7 +17,8 @@ After ``--steps`` warm-up steps it prints:
   * one more step under ``torch.profiler`` (CPU and CUDA activities; the
     trace is written to ``build/profile/train_profile_trace.json``): the
     device time summed by kernel from the trace, grouped (flash forward
-    and backward, matrix products, the rest), the share of the step's
+    and backward, selective scan forward and backward, matrix products,
+    the rest), the share of the step's
     wall time the device was busy, and the ten kernels that took longest.
 
 Needs a CUDA card and ``nvcc``; ``--layers`` cuts the depth. ``--src``
@@ -38,6 +39,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "profile"    # the profiler's trace goes here (git ignores build/)
 GROUPS = (("flash backward", ("fa_bwd",)), ("flash forward", ("fa_fwd",)),
+          ("scan backward", ("ssm_scan_bwd",)), ("scan forward", ("ssm_scan_kernel",)),
           ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")))
 
 
