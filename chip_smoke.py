@@ -39,9 +39,11 @@ non-zero at the first failure:
      states the forward kernel saves, against its plain version
      (``selective_scan_bwd_ref``) at the same cases, in float32 and bf16,
      with and without h0 and a gradient on the last state, and at
-     hymba-1.5b's training shape (x and dy bf16), two calls bit-identical;
-     kernel (eager and CUDA graph) and plain times, and the forward's device
-     time without and with the chunk states;
+     hymba-1.5b's training shape (x and dy bf16), two calls bit-identical,
+     with the launch geometry there (blocks, threads, cluster, resident
+     blocks an SM, waves, registers, spills); kernel (eager and CUDA graph)
+     and plain times, and the forward's device time without and with the
+     chunk states;
   7. small inputs: the reduced qwen2-1.5b, hymba-1.5b and falcon-mamba-7b
      serving computations in float32 on the card (kernels) against the
      same on the CPU, and one float32 train step of each on the card
@@ -731,6 +733,15 @@ def scan_bwd_phase(torch, scan_ops, selective_scan_ref, selective_scan_bwd_ref):
     # hymba-1.5b's training shape with the model's types: x and dy bf16,
     # dt, B, C float32, A from A_log rounded to bf16; no h0, as in training
     B, S, Di, N = 4, 512, 3200, 16
+    geo = scan_ops.selective_scan_bwd_geometry(B, S, Di, N)
+    phase("ssm_scan_bwd", f"hymba-1.5b launch: {geo['blocks']} blocks of {geo['threads']} "
+                          f"threads in clusters of {geo['cluster']}; {geo['blocks_per_sm']} blocks "
+                          f"({geo['warps_per_sm']} warps) resident an SM, "
+                          f"{geo['clusters_resident']} clusters at once on {geo['sms']} SMs: "
+                          f"{geo['waves']:.3f} waves; {geo['registers']} registers, "
+                          f"{geo['local_bytes']} B local a thread, {geo['smem_bytes']} B shared "
+                          f"a block")
+    check(geo["local_bytes"] == 0, "ssm_scan_bwd: the training shape's kernel spills")
     args = inputs(B, S, Di, N, torch.bfloat16, False, 9)
     x, dt, b, c, a, d, _, dy, _ = args
     errs, worst_abs, hc = errors(args, "hymba-1.5b")
@@ -754,7 +765,8 @@ def scan_bwd_phase(torch, scan_ops, selective_scan_ref, selective_scan_bwd_ref):
     t_bytes, t_ops = nbytes / PEAK_BYTES, max(flops / PEAK_F32_FLOPS, t_exp)
     entry = {
         "name": "ssm_scan_bwd", "route": "cuda",
-        "route_detail": "ssm_scan_bwd_kernel, then ssm_scan_bwd_sum_kernel",
+        "route_detail": "ssm_scan_bwd_kernel in clusters of "
+                        f"{geo['cluster']} blocks, then ssm_scan_bwd_sum_kernel",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
         "replaces": None,
         "max_abs_err": worst_abs, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,

@@ -40,6 +40,8 @@ def _bwd_lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.repro_ssm_scan_bwd_work_floats.argtypes = [ctypes.c_int] * 4
     lib.repro_ssm_scan_bwd_work_floats.restype = ctypes.c_longlong
+    lib.repro_ssm_scan_bwd_geometry.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.repro_ssm_scan_bwd_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -150,6 +152,26 @@ def selective_scan_bwd(
 
 
 selective_scan_bwd.launches = 0  # backward calls (two kernels each); callers reset it to 0
+
+_GEOMETRY = ("blocks", "threads", "cluster", "blocks_per_sm", "clusters_resident", "sms",
+             "registers", "local_bytes", "smem_bytes")
+
+
+def selective_scan_bwd_geometry(B: int, S: int, Di: int, N: int,
+                                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How ``selective_scan_bwd`` launches its scan kernel on the current
+    card for these sizes (16-byte aligned tensors): {blocks, threads (a
+    block), cluster (blocks a cluster), blocks_per_sm (resident, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), clusters_resident
+    (cudaOccupancyMaxActiveClusters), sms, registers and local_bytes (a
+    thread), smem_bytes (a block), warps_per_sm, waves}."""
+    out = (ctypes.c_int * len(_GEOMETRY))()
+    rc = _bwd_lib().repro_ssm_scan_bwd_geometry(B, S, Di, N, _DTYPES[dtype], out)
+    _build.check(rc, "ssm_scan_bwd geometry")
+    geo = dict(zip(_GEOMETRY, out))
+    geo["warps_per_sm"] = geo["blocks_per_sm"] * geo["threads"] // 32
+    geo["waves"] = geo["blocks"] / geo["cluster"] / max(geo["clusters_resident"], 1)
+    return geo
 
 
 class SelectiveScanFn(torch.autograd.Function):

@@ -714,11 +714,14 @@ def test_ssm_scan_bwd_kernel_matches_plain(cuda, B, S, Di, N, dtype, with_state)
 
 
 @pytest.mark.parametrize("N", [8, 16])
-@pytest.mark.parametrize("Di", [48, 3216])
+@pytest.mark.parametrize("Di", [32, 48, 96, 136, 3216])
 @pytest.mark.parametrize("S", [1, 63, 65, 520])
 def test_ssm_scan_bwd_staged_chunks_match_plain(cuda, S, Di, N):
-    """Sequence lengths around the 64-step chunk and its 8-step sub-chunks,
-    channel counts around the 64-channel block, x bf16 as trained."""
+    """Sequence lengths around the 64-step chunk and its 8-step sub-chunks;
+    channel counts around the 32-channel block and its cluster of 4 blocks
+    (at N 8 and 16): one block, a block and a half, one block less than a
+    cluster, a cluster and a block, and 101 blocks, whose last cluster has
+    one block with channels and three without; x bf16 as trained."""
     x, dt, b, c, a, d, h0, dy, dh = _scan_bwd_inputs(2, S, Di, N, torch.bfloat16, True, cuda,
                                                      seed=S + Di)
     _, _, hc = scan_ops.selective_scan_fwd(x, dt, b, c, a, d, h0=h0, chunk_states=True)
@@ -726,6 +729,14 @@ def test_ssm_scan_bwd_staged_chunks_match_plain(cuda, S, Di, N):
     want = selective_scan_bwd_ref(x, dt, b, c, a, d, dy, h0=h0, dh_last=dh)
     errs = _scan_bwd_errors(got, want, True)
     assert _scan_bwd_within(errs, torch.bfloat16), errs
+
+
+def test_ssm_scan_bwd_training_shape_fits_one_wave(cuda):
+    """At hymba-1.5b's training shape the whole grid is resident at once,
+    at 16 warps or more an SM, without spills."""
+    geo = scan_ops.selective_scan_bwd_geometry(4, 512, 3200, 16)
+    assert geo["waves"] <= 1.0 and geo["blocks"] <= geo["blocks_per_sm"] * geo["sms"], geo
+    assert geo["warps_per_sm"] >= 16 and geo["local_bytes"] == 0, geo
 
 
 @pytest.mark.parametrize("B,S,Di,N", [(4, 512, 3200, 16), (3, 33, 100, 16), (1, 17, 5, 32)])
