@@ -3,9 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --batch 4 --prompt-len 512 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --reduced
 
 The slice, on one device (``--device``, default ``cuda``), for the dense,
-ssm and hybrid families:
+moe, ssm and hybrid families:
 
   1. publish v0 of the float32 parameters into an in-process
      ``BackendService`` (256 KiB blocks, eager cache updates);
@@ -83,8 +84,9 @@ def sparse_update(cfg: ModelConfig, params: Dict, generator: torch.Generator,
                   *, rows: int = 8) -> Dict:
     """v1 of ``params``: ``rows`` random rows of ``embed`` and the first 16
     input rows of the middle layer's ``mlp/wi`` (when the config has an
-    MLP) and ``ssm/in_proj`` (when it has an SSM) get small random deltas.
-    The touched leaves are new tensors; every other leaf is shared."""
+    MLP), of its first expert's ``moe/wi`` (MoE) and of its ``ssm/in_proj``
+    (SSM) get small random deltas. The touched leaves are new tensors;
+    every other leaf is shared."""
     out = dict(params)
     dev = params["embed"].device
     embed = params["embed"].clone()
@@ -93,12 +95,14 @@ def sparse_update(cfg: ModelConfig, params: Dict, generator: torch.Generator,
     out["embed"] = embed
     layers = dict(params["layers"])
     layer = cfg.num_layers // 2
-    touched = ([("mlp", "wi")] if cfg.d_ff > 0 else []) + \
-        ([("ssm", "in_proj")] if cfg.has_ssm else [])
-    for group, name in touched:
+    # (group, leaf, index of the matrix whose input rows change)
+    touched = ([("mlp", "wi", (layer,))] if cfg.d_ff > 0 else []) + \
+        ([("moe", "wi", (layer, 0))] if cfg.is_moe else []) + \
+        ([("ssm", "in_proj", (layer,))] if cfg.has_ssm else [])
+    for group, name, at in touched:
         sub = dict(layers[group])
         w = sub[name].clone()
-        w[layer, :16] += 0.01 * torch.randn(16, w.shape[-1], generator=generator, device=dev)
+        w[at][:16] += 0.01 * torch.randn(16, w.shape[-1], generator=generator, device=dev)
         sub[name] = w
         layers[group] = sub
     out["layers"] = layers

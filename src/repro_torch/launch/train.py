@@ -4,9 +4,8 @@
       --reduced --device cpu --steps 4
 
 Port of ``repro.launch.train`` on one device (``--device``, default
-``cuda``), for the dense family on the card and the dense, ssm and hybrid
-families on the CPU (the selective-scan kernel has no backward yet). The
-slice, in the reference's order:
+``cuda``), for the dense, moe, ssm and hybrid families. The slice, in the
+reference's order:
 
   1. ``init_params`` and ``init_opt_state`` (float32, from ``--seed``);
   2. ``TransactionalTrainer.init`` commits the state to an in-process

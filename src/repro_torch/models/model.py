@@ -1,11 +1,12 @@
 """Decoder: param defs, init, training loss, prefill and decode, in PyTorch.
 
-Port of ``repro.models.model`` for the dense, ssm and hybrid families.
-Parameters are a plain nested dict of tensors with the reference's
-layer-stacked names and shapes (``layers/attn/wq`` is (L, D, H)), so one
-FaaSFS snapshot loads in either package. The decoder stack is a Python loop
-over the stacked layers. MoE and vision-prefix configs raise
-``NotImplementedError`` naming the slice that brings them (see ROADMAP.md).
+Port of ``repro.models.model`` for the dense, moe, ssm and hybrid
+families. Parameters are a plain nested dict of tensors with the
+reference's layer-stacked names and shapes (``layers/attn/wq`` is (L, D, H),
+``layers/moe/wi`` (L, E, D, F)), so one FaaSFS snapshot loads in either
+package. The decoder stack is a Python loop over the stacked layers.
+Vision-prefix configs raise ``NotImplementedError`` naming the slice that
+brings them (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,13 +28,12 @@ from repro_torch.models.layers import (
     rms_norm_headwise,
     swiglu_mlp,
 )
+from repro_torch.models.moe import moe_ffn
 
 PyTree = Dict
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the MoE family comes with the MoE slice")
     if cfg.vision_prefix:
         raise NotImplementedError(
             f"{cfg.name}: vision-prefix inputs come with the vlm/audio slice")
@@ -98,7 +98,16 @@ def param_defs(cfg: ModelConfig) -> List[ParamDef]:
             ParamDef(("layers", "attn_branch_norm"), (L, D), "ones"),
             ParamDef(("layers", "ssm_branch_norm"), (L, D), "ones"),
         ]
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        E, Fm = cfg.num_experts, cfg.moe_d_ff
+        defs += [
+            ParamDef(("layers", "moe", "router"), (L, D, E)),
+            ParamDef(("layers", "moe", "wi"), (L, E, D, Fm)),
+            ParamDef(("layers", "moe", "wg"), (L, E, D, Fm)),
+            ParamDef(("layers", "moe", "wo"), (L, E, Fm, D), "out_normal"),
+            ParamDef(("layers", "ln2"), (L, D), "ones"),
+        ]
+    elif cfg.d_ff > 0:
         F = cfg.d_ff
         defs += [
             ParamDef(("layers", "mlp", "wi"), (L, D, F)),
@@ -228,10 +237,26 @@ def _mix(cfg, lp, attn_out, ssm_out):
                   + rms_norm(ssm_out, lp["ssm_branch_norm"], cfg.norm_eps))
 
 
+def _ffn_branch(cfg, lp, h):
+    """The block's feed-forward half on the normed ``h``: (y, aux), aux the
+    MoE load-balance term (float32), None for the dense MLP. The tokens are
+    routed as one group, as with the reference's unsharded ``ActSharding``."""
+    if cfg.is_moe:
+        mp = lp["moe"]
+        return moe_ffn(h, mp["router"], mp["wi"], mp["wg"], mp["wo"],
+                       num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                       capacity_factor=cfg.capacity_factor)
+    mp = lp["mlp"]
+    return swiglu_mlp(h, mp["wi"], mp["wg"], mp["wo"]), None
+
+
 def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto",
               scan_impl: str = "auto"):
-    """One decoder block. Returns (x, state): the layer's decode state,
-    {"k", "v"} for attention, {"conv", "ssm"} for the SSM, both for hybrid."""
+    """One decoder block. Returns (x, aux, state): the layer's MoE
+    load-balance term (a float32 scalar; None without MoE, where the
+    reference returns a zero: a zero and its sum per layer cost two
+    launches a layer) and its decode state, {"k", "v"} for attention,
+    {"conv", "ssm"} for the SSM, both for hybrid."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         attn_out, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
@@ -245,11 +270,11 @@ def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto
         mix, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
                                   attn_impl=attn_impl)
     x = x + mix
-    if cfg.d_ff > 0:
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        mp = lp["mlp"]
-        x = x + swiglu_mlp(h2, mp["wi"], mp["wg"], mp["wo"])
-    return x, state
+    aux = None
+    if cfg.is_moe or cfg.d_ff > 0:
+        y, aux = _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + y
+    return x, aux, state
 
 
 # --------------------------------------------------------------------------- #
@@ -271,9 +296,9 @@ def forward_hidden(
     """Embed -> blocks -> final norm.
 
     Returns (hidden (B, S, D), aux_loss, cache | None): the auxiliary loss
-    is a float32 zero for the families ported so far (the MoE slice brings
-    the load-balance term), and the cache holds the layers' decode states
-    stacked on a leading L axis (``block_fwd``).
+    is the float32 sum of the layers' MoE load-balance terms (zero without
+    MoE), and the cache holds the layers' decode states stacked on a
+    leading L axis (``block_fwd``).
 
     With ``remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (as the reference's ``jax.checkpoint`` per
@@ -291,19 +316,21 @@ def forward_hidden(
     impls = dict(q_chunk=q_chunk, attn_impl=attn_impl, scan_impl=scan_impl)
     wrap = remat and torch.is_grad_enabled() and not collect_cache
     states: Dict[str, List[torch.Tensor]] = {}
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind_layers(layers, cfg.num_layers):
         if wrap:
-            x = checkpoint(lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, **impls)[0],
-                           x, lp, use_reentrant=False)
-            continue
-        x, state = block_fwd(cfg, x, lp, positions, **impls)
-        if collect_cache:
-            for key, t in state.items():
-                states.setdefault(key, []).append(t)
+            x, aux = checkpoint(lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, **impls)[:2],
+                                x, lp, use_reentrant=False)
+        else:
+            x, aux, state = block_fwd(cfg, x, lp, positions, **impls)
+            if collect_cache:
+                for key, t in state.items():
+                    states.setdefault(key, []).append(t)
+        if aux is not None:
+            aux_sum = aux_sum + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {k: torch.stack(v) for k, v in states.items()} if collect_cache else None
-    return x, aux, caches
+    return x, aux_sum, caches
 
 
 def lm_head_weight(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
@@ -326,11 +353,12 @@ def loss_fn(
     attn_impl: str = "auto",
     scan_impl: str = "auto",
 ):
-    """Next-token cross-entropy (+ the auxiliary term). batch: tokens,
-    labels, mask. Returns (total, {"loss", "aux_loss", "tokens"}), all
-    float32 scalar tensors, as the reference's ``loss_fn``. ``attn_impl``
-    and ``scan_impl`` choose the kernels ("auto") or the plain math
-    ("plain") on the card, as in ``forward_hidden``."""
+    """Next-token cross-entropy (+ ``aux_weight`` times the MoE load-balance
+    term averaged over the layers). batch: tokens, labels, mask. Returns
+    (total, {"loss", "aux_loss", "tokens"}), all float32 scalar tensors, as
+    the reference's ``loss_fn``. ``attn_impl`` and ``scan_impl`` choose the
+    kernels ("auto") or the plain math ("plain") on the card, as in
+    ``forward_hidden``."""
     hidden, aux, _ = forward_hidden(
         cfg, params, batch["tokens"], compute_dtype=compute_dtype, q_chunk=q_chunk,
         remat=remat, remat_policy=remat_policy, attn_impl=attn_impl, scan_impl=scan_impl,
@@ -434,10 +462,9 @@ def _decode_block(cfg, x, lp, cl, cur_index: int):
     else:
         mix = _decode_attn(cfg, lp, h, cl, cur_index)
     x = x + mix
-    if cfg.d_ff > 0:
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        mp = lp["mlp"]
-        x = x + swiglu_mlp(h2, mp["wi"], mp["wg"], mp["wo"])
+    if cfg.is_moe or cfg.d_ff > 0:
+        # the step's B tokens are routed as one group, as in the reference
+        x = x + _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))[0]
     return x
 
 

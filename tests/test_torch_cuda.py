@@ -21,7 +21,9 @@ and to 2e-4 on the last state and the chunk states it saves for training,
 and the scan backward to 1e-4 of each gradient's largest value (2e-2 for dx
 when x is bf16), bit-identical from call to call. The reduced train steps
 of qwen2-1.5b, hymba-1.5b and falcon-mamba-7b on the card (kernels in both
-directions) match the same steps on the CPU.
+directions) match the same steps on the CPU, and so do the reduced MoE
+configs' serving computations and train steps (qwen3-moe-30b-a3b,
+mixtral-8x7b; routing and dispatch are plain PyTorch on both).
 """
 import numpy as np
 import pytest
@@ -56,6 +58,7 @@ FLASH_CASES = [  # tests/kernels/test_flash_attention.py, then ragged / small he
     (2, 100, 4, 2, 16, True, 0),
     (1, 77, 2, 1, 32, False, 0),
     (4, 512, 12, 2, 128, True, 0),     # qwen2-1.5b prefill, one layer
+    (4, 512, 32, 4, 128, True, 0),     # qwen3-moe-30b-a3b prefill, one layer: G 8
 ]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
 SCAN_CASES = [  # tests/kernels/test_ssm_scan.py, then ragged / other state sizes
@@ -275,7 +278,8 @@ def test_flash_sm90_bwd_matches_plain(cuda, hd, S, H, KV, causal, window):
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,window", [(4, 512, 12, 2, 128, 0),
-                                                 (4, 512, 25, 5, 64, 2048)])
+                                                 (4, 512, 25, 5, 64, 2048),
+                                                 (4, 512, 32, 4, 128, 0)])
 def test_flash_sm90_bwd_two_calls_bit_identical(cuda, B, S, H, KV, hd, window):
     """No atomics: the G heads' dK and dV are summed in a fixed order."""
     q, k, v, do = _bwd_inputs(B, S, H, KV, hd, torch.bfloat16, 3, cuda)
@@ -381,6 +385,60 @@ def test_ssm_training_on_card_matches_cpu(cuda, arch):
         big = m > 1e-3 * m.max()
         diff = (t.cpu() - flat_tensors(new_c["params"])[name]).abs()
         assert float(diff[big].max()) <= 1e-6, name
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+def test_moe_training_on_card_matches_cpu(cuda, arch):
+    """One float32 train step of the reduced MoE configs on the card (flash
+    forward and backward kernels, routing and dispatch in plain PyTorch)
+    and on the CPU, held as the qwen2-1.5b step is; the aux term too."""
+    cfg = reduced_config(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = _train_batch(cfg)
+    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                                    compute_dtype=torch.float32), adamw.AdamWConfig())
+    new_c, m_c = step(state, batch)
+    fa, fb = fa_ops.flash_attention, fa_ops.flash_attention_bwd
+    before = (fa.launches, fb.launches)
+    new_g, m_g = step(_to(state, cuda), batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (fa.launches, fb.launches) == (before[0] + 2 * L, before[1] + L)
+    for key in ("loss", "aux_loss", "grad_norm"):
+        assert m_g[key] == pytest.approx(m_c[key], rel=1e-5), key
+    for name, t in flat_tensors(new_g["opt"]["m"]).items():
+        assert _leaf_rel(t, flat_tensors(new_c["opt"]["m"])[name]) <= 1e-4, name
+    for name, t in flat_tensors(new_g["params"]).items():
+        m = flat_tensors(new_c["opt"]["m"])[name].abs()
+        big = m > 1e-3 * m.max()
+        diff = (t.cpu() - flat_tensors(new_c["params"])[name]).abs()
+        assert float(diff[big].max()) <= 1e-6, name
+
+
+def test_moe_serve_slice_on_card_matches_cpu(cuda):
+    """The reduced qwen3-moe-30b-a3b serving slice in float32 on the card
+    against ``generate`` on the CPU with the same params and prompts: the
+    same greedy tokens and prefill logits within 1e-4 of the largest, for
+    v0 and v1; the delta publish finds the expert block, and the served
+    params are bit-identical to the published ones."""
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b"))
+    run = serve.run(cfg, device=cuda, batch=2, prompt_len=64, tokens=4, seed=0,
+                    compute_dtype=torch.float32)
+    prompts = run.prompts.cpu()
+    for params, (logits, toks) in ((run.params_v0, run.out_v0), (run.params_v1, run.out_v1)):
+        lc, tc = serve.generate(cfg, _to(params, "cpu"), prompts, 4,
+                                compute_dtype=torch.float32)
+        np.testing.assert_allclose(logits.cpu().numpy(), lc.numpy(), rtol=0,
+                                   atol=1e-4 * float(lc.abs().max()))
+        assert torch.equal(toks.cpu(), tc)
+    dirty = run.publish_v1.dirty
+    assert dirty["params/layers/moe/wi"]
+    assert run.publish_v1.stats["blocks_written"] == sum(len(v) for v in dirty.values())
+    served = flat_tensors({"params": run.slice.device_params()})
+    want = flat_tensors({"params": run.params_v1})
+    for name, t in served.items():
+        assert torch.equal(t.view(torch.int32), want[name].view(torch.int32)), name
 
 
 def test_plain_scan_train_step_on_card_launches_no_scan_kernel(cuda):
@@ -623,15 +681,18 @@ def test_ssm_scan_staged_chunks_match_plain(cuda, S, Di, N, with_h0):
     assert float((h - hr).abs().max()) < 2e-4
 
 
-@pytest.mark.parametrize("kernel", ["flash_qwen2", "flash_hymba", "scan_hymba"])
+@pytest.mark.parametrize("kernel", ["flash_qwen2", "flash_hymba", "flash_qwen3_moe",
+                                    "scan_hymba"])
 def test_chip_smoke_serving_shapes_match_plain(cuda, kernel):
     """The serving-shape cases of chip_smoke.py with its inputs and bounds:
-    flash at qwen2-1.5b (B 4, S 512, H 12, KV 2, hd 128) and hymba-1.5b
-    (H 25, KV 5, hd 64, window 2048), bf16, causal; the scan at hymba-1.5b
-    (B 4, S 512, Di 3200, N 16) with x bf16 and A from bf16-rounded A_log."""
+    flash at qwen2-1.5b (B 4, S 512, H 12, KV 2, hd 128), hymba-1.5b (H 25,
+    KV 5, hd 64, window 2048) and qwen3-moe-30b-a3b (H 32, KV 4, hd 128),
+    bf16, causal; the scan at hymba-1.5b (B 4, S 512, Di 3200, N 16) with x
+    bf16 and A from bf16-rounded A_log."""
     if kernel.startswith("flash"):
-        B, S, H, KV, hd, window = ((4, 512, 12, 2, 128, 0) if kernel == "flash_qwen2"
-                                   else (4, 512, 25, 5, 64, 2048))
+        B, S, H, KV, hd, window = {"flash_qwen2": (4, 512, 12, 2, 128, 0),
+                                   "flash_hymba": (4, 512, 25, 5, 64, 2048),
+                                   "flash_qwen3_moe": (4, 512, 32, 4, 128, 0)}[kernel]
         g = torch.Generator(device=cuda).manual_seed(7)
         q, k, v = (torch.randn(B, n, S, hd, generator=g, device=cuda).bfloat16()
                    for n in (H, KV, KV))
@@ -803,7 +864,8 @@ def test_ssm_scan_bwd_refuses_what_it_does_not_take(cuda):
         scan_ops.selective_scan_bwd(x.half(), dt, b, c, a, d, dy.half(), chunk_states=hc)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b",
+                                  "qwen3-moe-30b-a3b", "mixtral-8x7b"])
 def test_reduced_generate_on_card_matches_cpu(cuda, arch):
     """The reduced serving computation in float32: card (kernels) and CPU
     (plain versions) give the same greedy tokens and close logits."""

@@ -304,3 +304,78 @@ def test_sparse_update_of_a_model_without_mlp_touches_the_ssm():
     assert set(k for k, v in info.dirty.items() if v) == {"params/embed",
                                                           "params/layers/ssm/in_proj"}
     assert info.stats["blocks_written"] == sum(len(v) for v in info.dirty.values())
+
+
+# ------------------------------------------------------------------------- #
+# The MoE family (qwen3-moe-30b-a3b, reduced): routed experts, expert blocks
+# ------------------------------------------------------------------------- #
+MOE = "qwen3-moe-30b-a3b"
+
+
+def _moe_weights(seed=0, gain=20.0):
+    jcfg = jax_reduced_config(jax_get_config(MOE))
+    host = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(seed)))
+    host = jax.tree.map(lambda a: a * gain if a.ndim >= 2 else a, host)
+    return jcfg, host
+
+
+@pytest.fixture(scope="module")
+def served_moe():
+    jcfg, host = _moe_weights()
+    cfg = reduced_config(get_config(MOE))
+    run = serve.run(cfg, device="cpu", batch=B, prompt_len=S, tokens=TOKENS, seed=0,
+                    compute_dtype=torch.float32, params=params_from_numpy(host, "cpu"))
+    return jcfg, cfg, run
+
+
+def test_moe_greedy_tokens_match_jax_composition(served_moe):
+    """The MoE prefill (the prompt's tokens routed as one group) and decode
+    (each step's tokens as one group) give JAX's tokens, and prefill logits
+    within 1e-5 of the largest logit (float32)."""
+    jcfg, cfg, run = served_moe
+    prompts = run.prompts.numpy()
+    for params, (logits, toks) in ((run.params_v0, run.out_v0), (run.params_v1, run.out_v1)):
+        jlogits, jtoks = _jax_generate(jcfg, params_to_numpy(params), prompts, TOKENS)
+        assert toks.shape == (B, TOKENS + 1)
+        np.testing.assert_array_equal(toks.numpy(), jtoks)
+        np.testing.assert_allclose(logits.numpy(), jlogits, rtol=0,
+                                   atol=1e-5 * np.abs(jlogits).max())
+    assert len(set(run.out_v0[1].reshape(-1).tolist())) > 1  # not a collapsed run
+    assert not torch.equal(run.out_v0[0], run.out_v1[0])    # v1 is served
+
+
+def test_moe_delta_publish_finds_the_expert_block(served_moe):
+    _, cfg, run = served_moe
+    dirty = run.publish_v1.dirty
+    old, new = flat_tensors({"params": run.params_v0}), flat_tensors({"params": run.params_v1})
+    for name in new:
+        assert dirty[name] == exact_dirty_blocks(new[name], old[name], serve.BLOCK_BYTES)
+    assert set(k for k, v in dirty.items() if v) == {"params/embed", "params/layers/moe/wi"}
+    assert run.publish_v1.stats["blocks_written"] == sum(len(v) for v in dirty.values())
+    host = dict(flatten_with_names(run.slice.server.params))
+    dev = flat_tensors({"params": run.slice.device_params()})
+    for name, want in new.items():
+        assert host[name].tobytes() == want.numpy().tobytes(), name
+        assert dev[name].numpy().tobytes() == want.numpy().tobytes(), name
+
+
+def test_moe_sparse_update_touches_one_expert_of_the_middle_layer():
+    """In 1 KiB blocks ``moe/wi`` (2 layers x 4 experts x 64 x 32 float32)
+    spans 64 blocks; the update changes 16 input rows of expert 0 of layer
+    1, bytes 32,768-34,815, and the in-place publish writes blocks 32 and
+    33 of it, found by the block-delta path."""
+    cfg = reduced_config(get_config(MOE))
+    gen = torch.Generator().manual_seed(7)
+    sl = serve.ServeSlice(cfg, device="cpu", compute_dtype=torch.float32, tokens=1,
+                          block_bytes=1024)
+    v0 = M.init_params(cfg, gen, device="cpu")
+    sl.publish(v0)
+    v1 = serve.sparse_update(cfg, v0, gen)
+    changed = (v1["layers"]["moe"]["wi"] != v0["layers"]["moe"]["wi"]).nonzero()
+    assert changed[:, :2].unique(dim=0).tolist() == [[1, 0]]
+    assert changed[:, 2].unique().tolist() == list(range(16))
+    info = sl.publish(v1)
+    assert info.dirty["params/layers/moe/wi"] == [32, 33]
+    assert set(k for k, v in info.dirty.items() if v) == {"params/embed",
+                                                          "params/layers/moe/wi"}
+    assert info.stats["blocks_written"] == sum(len(v) for v in info.dirty.values())

@@ -152,7 +152,9 @@ def _torch_loss_and_grads(cfg, host, batch, **kw):
 
 @pytest.mark.parametrize("arch,dtype", [("qwen2-1.5b", "float32"), ("qwen2-1.5b", "bfloat16"),
                                         ("hymba-1.5b", "float32"),
-                                        ("falcon-mamba-7b", "float32")])
+                                        ("falcon-mamba-7b", "float32"),
+                                        ("qwen3-moe-30b-a3b", "float32"),
+                                        ("mixtral-8x7b", "float32")])
 def test_loss_fn_value_and_grads_match_jax(arch, dtype):
     jcfg, cfg, jparams, host = _setup(arch)
     batch = _batch(cfg)
@@ -164,7 +166,11 @@ def test_loss_fn_value_and_grads_match_jax(arch, dtype):
                                                   ce_chunk=16)
     tol = LOSS_GRAD_TOL[dtype]
     assert float(metrics["tokens"]) == float(jmetrics["tokens"])
-    assert float(metrics["aux_loss"]) == float(jmetrics["aux_loss"]) == 0.0
+    if cfg.is_moe:   # the load-balance term summed over the layers, float32
+        aux = float(metrics["aux_loss"].detach())
+        assert aux == pytest.approx(float(jmetrics["aux_loss"]), rel=1e-5) and aux > 0.0
+    else:
+        assert float(metrics["aux_loss"]) == float(jmetrics["aux_loss"]) == 0.0
     assert float(total.detach()) == pytest.approx(float(jtotal),
                                                   rel=1e-5 if dtype == "float32" else 1e-2)
     jflat = dict(flatten_with_names(jax.tree.map(np.asarray, jgrads)))
@@ -291,6 +297,28 @@ def test_state_crosses_the_bridge_with_its_count():
     for (n, a), (m, b) in zip(flatten_with_names(jstate), flatten_with_names(back)):
         assert n == m and a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes(), n
+
+
+def test_moe_state_crosses_the_bridge_both_ways():
+    """The MoE training state, JAX-initialized, crosses to torch and back
+    bit-identical under the reference's leaf names, and a torch-initialized
+    one crosses to numpy and back bit-identical too."""
+    jcfg, cfg, jparams, _ = _setup("qwen3-moe-30b-a3b")
+    jstate = jax.tree.map(np.asarray, _jax_state(jparams))
+    t = params_from_numpy(jstate, "cpu")
+    assert t["params"]["layers"]["moe"]["wi"].shape == (2, 4, 64, 32)
+    back = params_to_numpy(t)
+    names = [n for n, _ in flatten_with_names(jstate)]
+    assert {"params/layers/moe/router", "params/layers/moe/wi", "params/layers/moe/wg",
+            "params/layers/moe/wo", "opt/m/layers/moe/wi"} <= set(names)
+    for (n, a), (m, b) in zip(flatten_with_names(jstate), flatten_with_names(back)):
+        assert n == m and a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes(), n
+    own = M.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    again = flat_tensors(params_from_numpy(params_to_numpy(own), "cpu"))
+    assert sorted(again) == sorted(n for n, _ in flatten_with_names(jparams))
+    for name, t in flat_tensors(own).items():
+        assert torch.equal(again[name].view(torch.int32), t.view(torch.int32)), name
 
 
 # --------------------------------------------------------------------------- #
@@ -485,9 +513,23 @@ def test_launch_train_run_checks(tmp_path):
     """``run`` at reduced size: full then delta checkpoints, each step's
     dirty set equal to the exact compare of the committed states, the
     restore equal to the trainer's state, the served params equal to it."""
+    _check_train_run(reduced_config(get_config("qwen2-1.5b")))
+
+
+def test_launch_train_run_checks_moe():
+    """The same for the reduced qwen3-moe-30b-a3b: every expert leaf and
+    the router change in each step, and the run's losses and aux terms
+    are finite."""
+    r = _check_train_run(reduced_config(get_config("qwen3-moe-30b-a3b")))
+    for res in r.steps:
+        for name in ("router", "wi", "wg", "wo"):
+            assert res.dirty[f"params/layers/moe/{name}"], (res.step, name)
+        assert np.isfinite(res.metrics["loss"]) and res.metrics["aux_loss"] > 0
+
+
+def _check_train_run(cfg):
     from repro_torch.launch import train
     from repro_torch.state.checkpoint import exact_dirty_blocks
-    cfg = reduced_config(get_config("qwen2-1.5b"))
     r = train.run(cfg, device="cpu", steps=3, batch=2, seq=32, ckpt_every=2,
                   keep_states=True, serve_tokens=4)
     assert [s.dirty is None for s in r.saves] == [True, False]
@@ -506,3 +548,4 @@ def test_launch_train_run_checks(tmp_path):
         assert t.numpy().tobytes() == last[name].numpy().tobytes(), name
     logits, toks = r.served
     assert toks.shape == (2, 5) and bool(torch.isfinite(logits).all())
+    return r
