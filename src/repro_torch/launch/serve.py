@@ -4,16 +4,20 @@
       --batch 4 --prompt-len 512 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --reduced \
+      --kv-dtype int8
 
-The slice, on one device (``--device``, default ``cuda``), for the dense,
-moe, ssm and hybrid families:
+The slice, on one device (``--device``, default ``cuda``), for every
+family of ``configs/``:
 
   1. publish v0 of the float32 parameters into an in-process
      ``BackendService`` (256 KiB blocks, eager cache updates);
   2. ``SnapshotServer.refresh()`` pins it; a request prefills the prompts
-     (flash-attention and selective-scan kernels on CUDA), seeds the
-     decode cache with the prefill K/V at ``[:, :, :S]`` and the SSM state,
-     and runs ``--tokens`` greedy decode steps;
+     (flash-attention and selective-scan kernels on CUDA; for a vlm config
+     after ``vision_prefix`` pixel embeddings drawn from the seed, as the
+     reference's stub frontend gives them), seeds the decode cache with the
+     prefill K/V (quantized for ``--kv-dtype int8``) and the SSM state, and
+     runs ``--tokens`` greedy decode steps;
   3. publish v1, a sparse update, IN PLACE: the block-delta kernel flags
      the dirty 256 KiB blocks of each leaf and ``TensorStore.save`` writes
      only those blocks under the same name;
@@ -47,6 +51,38 @@ ROOT = "/mnt/tsfs/train"
 NAME = "state"
 
 
+KV_DTYPES = {"bf16": None, "int8": torch.int8}
+
+
+def request_pixel_embeds(cfg: ModelConfig, batch: int, seed: int, device) -> torch.Tensor:
+    """The (batch, vision_prefix, d_model) bf16 pixel embeddings of a vlm
+    request: standard normal from ``seed`` on a CPU generator (the same
+    values on every device), as the reference's stub frontend stands in
+    for the vision encoder."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, cfg.vision_prefix, cfg.d_model, generator=gen)
+    return x.to(torch.bfloat16).to(device)
+
+
+def seed_cache(cfg: ModelConfig, prefill_cache: Dict, batch: int, max_seq: int,
+               dtype, *, device) -> Dict:
+    """A ``make_decode_cache`` cache of ``dtype`` holding the prefill's
+    state: K/V at ``[:, :, :S]`` (quantized by ``M.quantize_kv``, the
+    function decode uses, for an int8 cache) and the SSM conv and scan
+    state."""
+    cache = M.make_decode_cache(cfg, batch, max_seq, dtype, device=device)
+    for key, state in prefill_cache.items():
+        if key in ("k", "v"):
+            S = state.shape[2]
+            if dtype == torch.int8:
+                cache[key][:, :, :S], cache[key + "_scale"][:, :, :S] = M.quantize_kv(state)
+            else:
+                cache[key][:, :, :S] = state
+        else:
+            cache[key].copy_(state)
+    return cache
+
+
 def generate(
     cfg: ModelConfig,
     params: Dict,
@@ -54,22 +90,24 @@ def generate(
     tokens: int,
     *,
     compute_dtype=torch.bfloat16,
+    pixel_embeds: Optional[torch.Tensor] = None,
+    kv_dtype=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill ``prompts`` (B, S), then ``tokens`` greedy decode steps.
+    """Prefill ``prompts`` (B, S), after ``pixel_embeds`` (B, P, D) for a
+    vlm config, then ``tokens`` greedy decode steps from position P + S.
 
     Returns (prefill logits (B, V) float32, tokens (B, tokens + 1)): the
     argmax of the prefill logits followed by one token per decode step.
-    The decode cache has the compute type; prefill seeds its K/V at
-    ``[:, :, :S]`` and its SSM conv and scan state.
+    The decode cache has ``kv_dtype`` (None: the compute type; or
+    ``torch.int8``), seeded with the prefill's state (``seed_cache``).
     """
-    B, S = prompts.shape
-    logits, pc = M.prefill(cfg, params, prompts, compute_dtype=compute_dtype)
-    cache = M.make_decode_cache(cfg, B, S + tokens, compute_dtype, device=prompts.device)
-    for key, state in pc.items():
-        if key in ("k", "v"):
-            cache[key][:, :, :S] = state
-        else:
-            cache[key].copy_(state)
+    B = prompts.shape[0]
+    logits, pc = M.prefill(cfg, params, prompts, pixel_embeds=pixel_embeds,
+                           compute_dtype=compute_dtype)
+    S = prompts.shape[1] + (pixel_embeds.shape[1] if cfg.vision_prefix
+                            and pixel_embeds is not None else 0)
+    cache = seed_cache(cfg, pc, B, S + tokens, kv_dtype or compute_dtype,
+                       device=prompts.device)
     tok = logits.argmax(dim=-1, keepdim=True)
     out = [tok]
     for i in range(tokens):
@@ -123,11 +161,15 @@ class ServeSlice:
 
     def __init__(self, cfg: ModelConfig, *, device: str = "cuda",
                  compute_dtype=torch.bfloat16, tokens: int = 32,
-                 block_bytes: int = BLOCK_BYTES):
+                 block_bytes: int = BLOCK_BYTES, kv_dtype=None, seed: int = 0):
+        """``kv_dtype``: the decode cache's type (None: the compute type;
+        ``torch.int8``); ``seed``: that of a vlm request's pixel embeds."""
         self.cfg = cfg
         self.device = device
         self.compute_dtype = compute_dtype
         self.tokens = tokens
+        self.kv_dtype = kv_dtype
+        self.seed = seed
         self.block_bytes = block_bytes
         self.backend = BackendService(block_size=block_bytes, policy=CachePolicy.EAGER)
         self.boot = LocalServer(self.backend)
@@ -182,8 +224,11 @@ class ServeSlice:
         dev = self.snapshot.get(state)
         if self._cast[0] is not dev:
             self._cast = (dev, M.cast_params(dev["params"], self.compute_dtype))
+        pixels = (request_pixel_embeds(self.cfg, prompts.shape[0], self.seed, prompts.device)
+                  if self.cfg.vision_prefix else None)
         return generate(self.cfg, self._cast[1], prompts, self.tokens,
-                        compute_dtype=self.compute_dtype)
+                        compute_dtype=self.compute_dtype, pixel_embeds=pixels,
+                        kv_dtype=self.kv_dtype)
 
 
 @dataclass
@@ -213,16 +258,19 @@ def run(
     tokens: int = 32,
     seed: int = 0,
     compute_dtype=torch.bfloat16,
+    kv_dtype=None,
     params: Optional[Dict] = None,
 ) -> ServeRun:
     """Steps 1-4 of the module docstring. ``params`` (a device tree) skips
-    the random initialization; prompts and the update come from ``seed``."""
+    the random initialization; prompts, pixel embeds and the update come
+    from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if params is None:
         params = M.init_params(cfg, gen, device=device)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=device)
-    sl = ServeSlice(cfg, device=device, compute_dtype=compute_dtype, tokens=tokens)
+    sl = ServeSlice(cfg, device=device, compute_dtype=compute_dtype, tokens=tokens,
+                    kv_dtype=kv_dtype, seed=seed)
     secs: Dict[str, float] = {}
 
     def timed(key, fn, *args):
@@ -253,18 +301,23 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-dtype", choices=list(KV_DTYPES), default="bf16",
+                    help="the decode cache's type: bf16 (the compute type) or int8 "
+                         "(per-position, per-KV-head scales)")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     r = run(cfg, device=args.device, batch=args.batch, prompt_len=args.prompt_len,
-            tokens=args.tokens, seed=args.seed)
+            tokens=args.tokens, seed=args.seed, kv_dtype=KV_DTYPES[args.kv_dtype])
     n_dirty = sum(len(v) for v in r.publish_v1.dirty.values())
     print(f"arch={cfg.name} device={args.device} params={cfg.param_count()}")
+    prefix = f"{cfg.vision_prefix} pixel embeds + " if cfg.vision_prefix else ""
     print(f"v0: published {r.publish_v0.stats['bytes_written']} B in "
           f"{r.seconds['publish_v0']:.2f}s; refresh {r.seconds['refresh_v0']:.2f}s; "
-          f"served {args.batch}x({args.prompt_len}+{args.tokens}) in "
+          f"served {args.batch}x({prefix}{args.prompt_len}+{args.tokens}) with the "
+          f"{args.kv_dtype} cache in "
           f"{r.seconds['serve_v0']:.2f}s")
     print(f"v1: {n_dirty} dirty blocks, wrote {r.publish_v1.stats['blocks_written']} "
           f"blocks in place in {r.seconds['publish_v1']:.2f}s (dirty detection "

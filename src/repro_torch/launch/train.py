@@ -4,7 +4,10 @@
       --reduced --device cpu --steps 4
 
 Port of ``repro.launch.train`` on one device (``--device``, default
-``cuda``), for the dense, moe, ssm and hybrid families. The slice, in the
+``cuda``), for every family of ``configs/``. A vlm config's batches carry
+``vision_prefix`` pixel embeddings before the ``--seq`` text tokens
+(``train_batch``), which take no loss. ``--remat-policy dots`` keeps the
+products' outputs through the layer's rematerialization. The slice, in the
 reference's order:
 
   1. ``init_params`` and ``init_opt_state`` (float32, from ``--seed``);
@@ -30,8 +33,9 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.bridge import params_from_numpy
@@ -73,6 +77,18 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize(device)
 
 
+def train_batch(cfg: ModelConfig, dcfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
+    """``synth_batch``, and for a vlm config "pixel_embeds" (batch,
+    vision_prefix, d_model) float32, standard normal from (seed, step): the
+    stub frontend's output the reference's ``input_specs`` stands for."""
+    batch = synth_batch(dcfg, step)
+    if cfg.vision_prefix:
+        rng = np.random.default_rng([dcfg.seed, step])
+        batch["pixel_embeds"] = rng.standard_normal(
+            (dcfg.global_batch, cfg.vision_prefix, cfg.d_model), dtype=np.float32)
+    return batch
+
+
 def run(
     cfg: ModelConfig,
     *,
@@ -84,6 +100,7 @@ def run(
     seed: int = 0,
     serve_tokens: int = 32,
     keep_states: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> TrainRun:
     """Steps 1-6 of the module docstring; seconds of each stage in
     ``seconds`` (synchronized)."""
@@ -93,7 +110,8 @@ def run(
                            device=device)
     state0 = {"params": params, "opt": adamw.init_opt_state(params)}
     del params
-    plan = CellPlan(cfg, ShapeCell("t", "train", seq, batch), q_chunk=0, ce_chunk=32)
+    plan = CellPlan(cfg, ShapeCell("t", "train", seq, batch), q_chunk=0, ce_chunk=32,
+                    remat_policy=remat_policy)
     opt_cfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=5, decay_steps=steps)
     step_fn = make_train_step(plan, opt_cfg)
     _sync(device)
@@ -115,7 +133,7 @@ def run(
     saves: List[SaveInfo] = []
     for step in range(steps):
         t0 = time.perf_counter()
-        results.append(trainer.step(synth_batch(dcfg, step)))
+        results.append(trainer.step(train_batch(cfg, dcfg, step)))
         secs[f"step_{step + 1}"] = time.perf_counter() - t0
         if keep_states:
             states.append(trainer.read_state())
@@ -153,6 +171,9 @@ def main() -> None:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--remat-policy", choices=["dots"], default=None,
+                    help="dots: keep the outputs of the products with no batch dimension "
+                         "(default: recompute the whole layer)")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
@@ -161,7 +182,7 @@ def main() -> None:
     print(f"arch={cfg.name} device={args.device} params={cfg.param_count():,} "
           f"family={cfg.family}")
     r = run(cfg, device=args.device, steps=args.steps, batch=args.batch, seq=args.seq,
-            ckpt_every=args.ckpt_every, seed=args.seed)
+            ckpt_every=args.ckpt_every, seed=args.seed, remat_policy=args.remat_policy)
     for res in r.steps:
         print(f"step {res.step:4d} loss={res.metrics['loss']:.4f} attempts={res.attempts} "
               f"blocks={res.blocks_written} bytes={res.bytes_written:,}")

@@ -1,21 +1,22 @@
 """Decoder: param defs, init, training loss, prefill and decode, in PyTorch.
 
-Port of ``repro.models.model`` for the dense, moe, ssm and hybrid
-families. Parameters are a plain nested dict of tensors with the
+Port of ``repro.models.model`` for every family of ``configs/``: dense,
+moe, ssm, hybrid, vlm (a ``vision_prefix`` of pixel embeddings before the
+text) and audio. Parameters are a plain nested dict of tensors with the
 reference's layer-stacked names and shapes (``layers/attn/wq`` is (L, D, H),
 ``layers/moe/wi`` (L, E, D, F)), so one FaaSFS snapshot loads in either
 package. The decoder stack is a Python loop over the stacked layers.
-Vision-prefix configs raise ``NotImplementedError`` naming the slice that
-brings them (see ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -33,12 +34,6 @@ from repro_torch.models.moe import moe_ffn
 PyTree = Dict
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.vision_prefix:
-        raise NotImplementedError(
-            f"{cfg.name}: vision-prefix inputs come with the vlm/audio slice")
-
-
 # --------------------------------------------------------------------------- #
 # Param defs
 # --------------------------------------------------------------------------- #
@@ -50,7 +45,6 @@ class ParamDef:
 
 
 def param_defs(cfg: ModelConfig) -> List[ParamDef]:
-    _require_ported(cfg)
     D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
     defs: List[ParamDef] = [
         ParamDef(("embed",), (V, D)),
@@ -280,11 +274,37 @@ def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto
 # --------------------------------------------------------------------------- #
 # Forward (prefill)
 # --------------------------------------------------------------------------- #
+# The products with no batch dimension: x @ W on (B, S, D) x folds to one
+# ``mm`` of (B S, D). The attention's and the MoE experts' products are
+# ``bmm`` and stay out, as in ``jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable``.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(remat_policy: Optional[str]):
+    """``context_fn`` of ``torch.utils.checkpoint`` for the reference's
+    ``remat_policy``: None recomputes the whole layer, "dots" keeps the
+    outputs of the products with no batch dimension and recomputes the
+    rest (the kernels launched through ctypes included: a dispatch-mode
+    policy does not see them, so they run again)."""
+    if remat_policy is None:
+        return noop_context_fn
+    if remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_products)
+    raise ValueError(f"remat_policy must be None or 'dots', got {remat_policy!r}")
+
+
 def forward_hidden(
     cfg: ModelConfig,
     params: PyTree,
     tokens: torch.Tensor,
     *,
+    pixel_embeds: Optional[torch.Tensor] = None,
     compute_dtype=torch.bfloat16,
     q_chunk: int = 0,
     collect_cache: bool = False,
@@ -298,18 +318,21 @@ def forward_hidden(
     Returns (hidden (B, S, D), aux_loss, cache | None): the auxiliary loss
     is the float32 sum of the layers' MoE load-balance terms (zero without
     MoE), and the cache holds the layers' decode states stacked on a
-    leading L axis (``block_fwd``).
+    leading L axis (``block_fwd``). For a vlm config, ``pixel_embeds``
+    (B, vision_prefix, D) are cast to ``compute_dtype`` and put before the
+    token embeddings; the positions run over prefix and text, and S counts
+    both.
 
     With ``remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (as the reference's ``jax.checkpoint`` per
     scanned layer): only its input is kept, and its forward is recomputed
-    in the backward pass. ``remat_policy="dots"`` (keep the products) is
-    not ported.
+    in the backward pass. ``remat_policy="dots"`` keeps the outputs of the
+    layer's products with no batch dimension as well (``_remat_context``).
     """
-    _require_ported(cfg)
-    if remat_policy is not None:
-        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported (ROADMAP)")
+    context_fn = _remat_context(remat_policy)
     x = embed_tokens(params["embed"], tokens, compute_dtype)
+    if cfg.vision_prefix and pixel_embeds is not None:
+        x = torch.cat([pixel_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
@@ -320,7 +343,7 @@ def forward_hidden(
     for lp in _unbind_layers(layers, cfg.num_layers):
         if wrap:
             x, aux = checkpoint(lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, **impls)[:2],
-                                x, lp, use_reentrant=False)
+                                x, lp, use_reentrant=False, context_fn=context_fn)
         else:
             x, aux, state = block_fwd(cfg, x, lp, positions, **impls)
             if collect_cache:
@@ -354,15 +377,20 @@ def loss_fn(
     scan_impl: str = "auto",
 ):
     """Next-token cross-entropy (+ ``aux_weight`` times the MoE load-balance
-    term averaged over the layers). batch: tokens, labels, mask. Returns
+    term averaged over the layers). batch: tokens, labels, mask, and for a
+    vlm config pixel_embeds, whose prefix positions take no loss. Returns
     (total, {"loss", "aux_loss", "tokens"}), all float32 scalar tensors, as
     the reference's ``loss_fn``. ``attn_impl`` and ``scan_impl`` choose the
     kernels ("auto") or the plain math ("plain") on the card, as in
     ``forward_hidden``."""
+    pixels = batch.get("pixel_embeds")
     hidden, aux, _ = forward_hidden(
-        cfg, params, batch["tokens"], compute_dtype=compute_dtype, q_chunk=q_chunk,
-        remat=remat, remat_policy=remat_policy, attn_impl=attn_impl, scan_impl=scan_impl,
+        cfg, params, batch["tokens"], pixel_embeds=pixels, compute_dtype=compute_dtype,
+        q_chunk=q_chunk, remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
+        scan_impl=scan_impl,
     )
+    if cfg.vision_prefix and pixels is not None:
+        hidden = hidden[:, cfg.vision_prefix:]
     head = lm_head_weight(cfg, params).to(compute_dtype)
     nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],
                                            chunk=ce_chunk)
@@ -376,6 +404,7 @@ def prefill(
     params: PyTree,
     tokens: torch.Tensor,
     *,
+    pixel_embeds: Optional[torch.Tensor] = None,
     compute_dtype=torch.bfloat16,
     q_chunk: int = 1024,
     attn_impl: str = "auto",
@@ -383,7 +412,8 @@ def prefill(
 ):
     """Returns (last-position logits (B, V) float32, cache).
 
-    The cache holds "k", "v" (L, B, S, KV, hd) for attention and, unlike
+    The cache holds "k", "v" (L, B, S, KV, hd) for attention (S counts the
+    vision prefix when ``pixel_embeds`` are given) and, unlike
     the reference, whose prefill returns only K/V, also the SSM decode
     state after the prompt: "conv" (L, B, K-1, Di), the last K-1 positions
     of each layer's conv input, and "ssm" (L, B, Di, N) float32, its scan's
@@ -391,8 +421,8 @@ def prefill(
     continue after the prompt, as the serving path needs.
     """
     hidden, _, cache = forward_hidden(
-        cfg, params, tokens, compute_dtype=compute_dtype, q_chunk=q_chunk,
-        collect_cache=True, attn_impl=attn_impl, scan_impl=scan_impl,
+        cfg, params, tokens, pixel_embeds=pixel_embeds, compute_dtype=compute_dtype,
+        q_chunk=q_chunk, collect_cache=True, attn_impl=attn_impl, scan_impl=scan_impl,
     )
     head = lm_head_weight(cfg, params).to(compute_dtype)
     logits = (hidden[:, -1] @ head).float()
@@ -410,33 +440,65 @@ def make_decode_cache(
     attention; "conv" (L, B, K-1, Di) and "ssm" (L, B, Di, N) float32 for
     the SSM. Unlike the reference, which keeps "conv" in bf16 whatever
     ``dtype`` is, "conv" has ``dtype``: decode writes it in place, and a
-    bf16 buffer would round a float32 model's conv state."""
-    _require_ported(cfg)
-    if dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache comes after the first slice")
+    bf16 buffer would round a float32 model's conv state.
+
+    ``dtype=torch.int8`` stores K/V quantized (``quantize_kv``), with
+    float32 scales "k_scale", "v_scale" (L, B, max_seq, KV) filled with
+    ones, as the reference; "conv" is then bf16, as the reference's."""
     L = cfg.num_layers
     cache: Dict[str, torch.Tensor] = {}
     if cfg.has_attention:
         shape = (L, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if dtype == torch.int8:
+            sshape = shape[:-1]
+            cache["k_scale"] = torch.ones(sshape, dtype=torch.float32, device=device)
+            cache["v_scale"] = torch.ones(sshape, dtype=torch.float32, device=device)
     if cfg.has_ssm:
+        conv_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
         cache["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
-                                    dtype=dtype, device=device)
+                                    dtype=conv_dtype, device=device)
         cache["ssm"] = torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
                                    dtype=torch.float32, device=device)
     return cache
 
 
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, kv-head) int8 quantization of K or V (..., hd), as
+    the reference's decode: scale = max |t| / 127 over hd, floored at 1e-8;
+    q = round(t / scale) (half to even), clipped to +-127. Returns (q int8
+    (..., hd), scale float32 (...)). Both divisions are IEEE on every
+    device, so the card quantizes as the CPU does: CUDA divides by a Python
+    number as a product with its reciprocal, so 127 is a tensor here."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1) / tf.new_full((), 127.0), min=1e-8)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The bf16 K or V that decode attends over: q * scale, rounded."""
+    return (q.float() * scale[..., None]).to(torch.bfloat16)
+
+
 def _decode_attn(cfg, lp, h, cl, cur_index: int):
-    """Attention for one token; writes its K/V into ``cl`` at ``cur_index``."""
+    """Attention for one token; writes its K/V into ``cl`` at ``cur_index``.
+    With an int8 cache the new K/V are quantized first and the whole layer
+    cache is dequantized to bf16 for the attention, as the reference."""
     B = h.shape[0]
     pos = torch.full((B, 1), cur_index, dtype=torch.int32, device=h.device)
     ap = lp["attn"]
     q, k, v = _qkv(cfg, ap, h, pos)
     kc, vc = cl["k"], cl["v"]
-    kc[:, cur_index] = k[:, 0].to(kc.dtype)
-    vc[:, cur_index] = v[:, 0].to(vc.dtype)
+    if "k_scale" in cl:
+        for t, c, sc in ((k, kc, cl["k_scale"]), (v, vc, cl["v_scale"])):
+            c[:, cur_index], sc[:, cur_index] = quantize_kv(t[:, 0])
+        kc = dequantize_kv(kc, cl["k_scale"])
+        vc = dequantize_kv(vc, cl["v_scale"])
+    else:
+        kc[:, cur_index] = k[:, 0].to(kc.dtype)
+        vc[:, cur_index] = v[:, 0].to(vc.dtype)
     out = decode_attention_xla(q.to(kc.dtype), kc, vc, cur_index,
                                window=cfg.sliding_window)
     return out.reshape(B, 1, cfg.q_dim).to(h.dtype) @ ap["wo"]
@@ -483,7 +545,6 @@ def decode_step(
     K/V and SSM state into ``cache`` in place and returns it: the cache is
     the largest decode buffer and a copy per step would double it.
     """
-    _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, compute_dtype)
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
     for i in range(cfg.num_layers):

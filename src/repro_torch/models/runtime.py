@@ -10,7 +10,7 @@ no ``jit`` to build.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -27,7 +27,9 @@ class CellPlan:
     """One (arch x shape) cell on one device. ``compute_dtype`` is the
     reference's ``loss_fn`` default, bf16; ``attn_impl="plain"`` and
     ``scan_impl="plain"`` run the plain attention and scan math on the
-    card, the on-card reference of the kernels."""
+    card, the on-card reference of the kernels. ``remat_policy`` (None or
+    "dots") and ``kv_dtype`` (None for the compute type, or ``torch.int8``
+    for the quantized KV cache) are the reference's fields."""
 
     cfg: ModelConfig
     shape: ShapeCell
@@ -37,11 +39,14 @@ class CellPlan:
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"
     scan_impl: str = "auto"
+    remat_policy: Optional[str] = None
+    kv_dtype: Optional[torch.dtype] = None
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """numpy or tensor batch leaves -> tensors on ``device``: token ids and
-    labels as int64 (the index type of gathers), the rest as they are."""
+    labels as int64 (the index type of gathers), the rest (mask, a vlm
+    batch's pixel_embeds) as they are."""
     out = {}
     for key, val in batch.items():
         t = torch.as_tensor(np.asarray(val)) if not isinstance(val, torch.Tensor) else val
@@ -84,8 +89,8 @@ def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
         with torch.enable_grad():
             total, metrics = M.loss_fn(
                 cfg, params, b, compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk,
-                ce_chunk=plan.ce_chunk, remat=plan.remat, attn_impl=plan.attn_impl,
-                scan_impl=plan.scan_impl)
+                ce_chunk=plan.ce_chunk, remat=plan.remat, remat_policy=plan.remat_policy,
+                attn_impl=plan.attn_impl, scan_impl=plan.scan_impl)
             grads = torch.autograd.grad(total, ps)
         del params, ps, total
         grads = _unflatten([(path, g) for (path, _), g in zip(leaves, grads)])
@@ -101,11 +106,20 @@ def make_prefill_step(plan: CellPlan):
     cfg = plan.cfg
 
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):
-        return M.prefill(cfg, params, batch["tokens"], compute_dtype=plan.compute_dtype,
-                         q_chunk=plan.q_chunk or 1024, attn_impl=plan.attn_impl,
-                         scan_impl=plan.scan_impl)
+        return M.prefill(cfg, params, batch["tokens"],
+                         pixel_embeds=batch.get("pixel_embeds"),
+                         compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk or 1024,
+                         attn_impl=plan.attn_impl, scan_impl=plan.scan_impl)
 
     return prefill_step
+
+
+def make_decode_cache(plan: CellPlan, device) -> PyTree:
+    """The cell's zero decode cache, (global batch, seq_len), in
+    ``plan.kv_dtype`` or else the compute type (the reference's
+    ``abstract_sharded_cache``, allocated)."""
+    return M.make_decode_cache(plan.cfg, plan.shape.global_batch, plan.shape.seq_len,
+                               plan.kv_dtype or plan.compute_dtype, device=device)
 
 
 def make_decode_step(plan: CellPlan):

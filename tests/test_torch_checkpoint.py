@@ -3,9 +3,10 @@
 delta-save fault (ROADMAP, Queue 3, item 1) and of the two faults of its
 own delta chain (items 8 and 9: a re-saved base, a chain that loops).
 
-The reference's SIGKILL test needs the networked server
-(``repro.core.server``, with its WAL, wire and lease modules), which the
-port has not copied; it is listed in ROADMAP.
+The reference's SIGKILL test runs against ``python -m
+repro_torch.core.server``, the port's copy of the networked server (with
+its WAL, wire, lease, sharded and remote modules), reached through the
+port's ``RemoteBackend``.
 """
 import json
 import threading
@@ -249,3 +250,80 @@ def test_checkpoint_without_identities_still_restores(local):
     assert got["w"].tobytes() == s2["w"].tobytes()
     got, _ = fresh.restore({"w": None}, step=1)
     assert got["w"].tobytes() == _grid(1.0)["w"].tobytes()
+
+
+def test_sigkill_during_save_never_restores_torn_checkpoint(tmp_path):
+    """Twin of tests/test_checkpoint.py::test_sigkill_during_save_never_restores_torn_checkpoint:
+    SIGKILL a real ``repro_torch.core.server`` process mid-save-stream,
+    restart it on the same WAL directory: every acked save survives, and
+    the latest pointer names a fully committed checkpoint (all leaves from
+    the same step)."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from repro_torch.core.remote import RemoteBackend
+
+    repo_root = Path(__file__).resolve().parents[1]
+    wal = tmp_path / "wal"
+
+    def spawn():
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(repo_root / "src") + os.pathsep + env.get("PYTHONPATH", "")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.core.server",
+             "--wal", str(wal), "--block-size", "4096"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=str(repo_root),
+        )
+        line = proc.stdout.readline()
+        assert line.startswith("LISTENING"), (line, proc.stderr.read())
+        return proc, int(line.split()[1])
+
+    proc, port = spawn()
+    rb = RemoteBackend("127.0.0.1", port)
+    cm = CheckpointManager(LocalServer(rb))
+    acked = []
+    stop = threading.Event()
+
+    def save_loop():
+        step = 0
+        while not stop.is_set():
+            step += 1
+            try:
+                cm.save(step, state(float(step)), delta_from_last=False)
+            except Exception:
+                return                     # server died mid-save: expected
+            acked.append(step)
+
+    t = threading.Thread(target=save_loop)
+    t.start()
+    deadline = time.monotonic() + 30
+    while len(acked) < 3 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    assert len(acked) >= 3
+    proc.kill()                            # SIGKILL, mid-save with high odds
+    proc.wait()
+    stop.set()
+    t.join()
+    rb.close()
+
+    proc2, port2 = spawn()                 # recovers checkpoint + WAL tail
+    try:
+        rb2 = RemoteBackend("127.0.0.1", port2)
+        cm2 = CheckpointManager(LocalServer(rb2))
+        step = cm2.latest_step()
+        # acked saves are durable; a commit may outrun its lost ack, so
+        # the recovered latest can only be >= the last acked step
+        assert step is not None and step >= max(acked)
+        restored, got = cm2.restore(state(), zero_copy=False)
+        assert got == step
+        np.testing.assert_array_equal(restored["params"]["w"],
+                                      np.full((32, 32), float(step), np.float32))
+        np.testing.assert_array_equal(restored["opt"]["m"], 0)
+        rb2.close()
+    finally:
+        proc2.kill()
+        proc2.wait()

@@ -34,8 +34,9 @@ PORT = ROOT / "src" / "repro_torch"
 COPIED = (
     [f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))]
     + [f"core/{m}.py" for m in ("__init__", "types", "api", "blockstore", "obs", "backend",
-                                 "client", "posix", "runtime", "arena", "tensorstate")]
-    + ["serving/engine.py", "data/pipeline.py", "train/elastic.py"]
+                                 "client", "posix", "runtime", "arena", "tensorstate",
+                                 "wire", "wal", "leases", "sharded", "remote", "server")]
+    + ["serving/engine.py", "serving/kvcache.py", "data/pipeline.py", "train/elastic.py"]
 )
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 

@@ -23,7 +23,9 @@ when x is bf16), bit-identical from call to call. The reduced train steps
 of qwen2-1.5b, hymba-1.5b and falcon-mamba-7b on the card (kernels in both
 directions) match the same steps on the CPU, and so do the reduced MoE
 configs' serving computations and train steps (qwen3-moe-30b-a3b,
-mixtral-8x7b; routing and dispatch are plain PyTorch on both).
+mixtral-8x7b; routing and dispatch are plain PyTorch on both), the reduced
+internvl2-76b (pixel embeds before the prompt; ``remat_policy="dots"``)
+and musicgen-large, and decode with the int8 KV cache.
 """
 import numpy as np
 import pytest
@@ -59,6 +61,8 @@ FLASH_CASES = [  # tests/kernels/test_flash_attention.py, then ragged / small he
     (1, 77, 2, 1, 32, False, 0),
     (4, 512, 12, 2, 128, True, 0),     # qwen2-1.5b prefill, one layer
     (4, 512, 32, 4, 128, True, 0),     # qwen3-moe-30b-a3b prefill, one layer: G 8
+    (4, 768, 64, 8, 128, True, 0),     # internvl2-76b: 256 pixel embeds + 512 tokens, G 8
+    (4, 512, 32, 32, 64, True, 0),     # musicgen-large: MHA, G 1
 ]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.5e-2}
 SCAN_CASES = [  # tests/kernels/test_ssm_scan.py, then ragged / other state sizes
@@ -416,6 +420,115 @@ def test_moe_training_on_card_matches_cpu(cuda, arch):
         assert float(diff[big].max()) <= 1e-6, name
 
 
+@pytest.mark.parametrize("arch,policy", [("internvl2-76b", None), ("internvl2-76b", "dots"),
+                                         ("musicgen-large", None), ("qwen2-1.5b", "dots")])
+def test_vlm_audio_and_dots_training_on_card_matches_cpu(cuda, arch, policy):
+    """One float32 train step of the reduced internvl2-76b (pixel embeds
+    before the text, loss over the text) and musicgen-large on the card and
+    on the CPU, also with ``remat_policy="dots"``, held as the qwen2-1.5b
+    step is; "dots" launches the flash kernels as the default remat does
+    (the recompute runs the attention again)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train_batch
+    cfg = reduced_config(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = train_batch(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0)
+    step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 64, 2), ce_chunk=32,
+                                    compute_dtype=torch.float32, remat_policy=policy),
+                           adamw.AdamWConfig())
+    new_c, m_c = step(state, batch)
+    fa, fb = fa_ops.flash_attention, fa_ops.flash_attention_bwd
+    before = (fa.launches, fb.launches)
+    new_g, m_g = step(_to(state, cuda), batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (fa.launches, fb.launches) == (before[0] + 2 * L, before[1] + L)
+    for key in ("loss", "grad_norm"):
+        assert m_g[key] == pytest.approx(m_c[key], rel=1e-5), key
+    for name, t in flat_tensors(new_g["opt"]["m"]).items():
+        assert _leaf_rel(t, flat_tensors(new_c["opt"]["m"])[name]) <= 1e-4, name
+    for name, t in flat_tensors(new_g["params"]).items():
+        m = flat_tensors(new_c["opt"]["m"])[name].abs()
+        big = m > 1e-3 * m.max()
+        diff = (t.cpu() - flat_tensors(new_c["params"])[name]).abs()
+        assert float(diff[big].max()) <= 1e-6, name
+
+
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8], ids=["float32", "int8"])
+def test_vlm_serve_slice_on_card_matches_cpu(cuda, kv_dtype):
+    """The reduced internvl2-76b serving slice in float32 on the card, with
+    a float32 and an int8 cache, against ``generate`` on the CPU with the
+    same params, prompts and pixel embeds: the same greedy tokens, prefill
+    logits within 1e-4 of the largest."""
+    cfg = reduced_config(get_config("internvl2-76b"))
+    run = serve.run(cfg, device=cuda, batch=2, prompt_len=64, tokens=4, seed=0,
+                    compute_dtype=torch.float32, kv_dtype=kv_dtype)
+    prompts = run.prompts.cpu()
+    pixels = serve.request_pixel_embeds(cfg, 2, 0, "cpu")
+    for params, (logits, toks) in ((run.params_v0, run.out_v0), (run.params_v1, run.out_v1)):
+        lc, tc = serve.generate(cfg, _to(params, "cpu"), prompts, 4, pixel_embeds=pixels,
+                                compute_dtype=torch.float32, kv_dtype=kv_dtype)
+        np.testing.assert_allclose(logits.cpu().numpy(), lc.numpy(), rtol=0,
+                                   atol=1e-4 * float(lc.abs().max()))
+        assert torch.equal(toks.cpu(), tc)
+
+
+def test_quantize_kv_on_card_equals_cpu(cuda):
+    """``quantize_kv`` gives the same int8 values and scales, bit for bit,
+    on the card as on the CPU (IEEE division on both; a Python-number
+    divisor on CUDA would be a product with its reciprocal, one ulp off for
+    some 4% of values), on float32 and bf16 K/V rows of hd 64 and 128."""
+    g = torch.Generator().manual_seed(3)
+    for hd, dtype in ((64, torch.float32), (128, torch.float32), (128, torch.bfloat16)):
+        t = (torch.randn(4096, 8, hd, generator=g) * torch.rand(4096, 8, 1, generator=g)
+             * 10).to(dtype)
+        q, scale = M.quantize_kv(t)
+        qg, sg = M.quantize_kv(t.to(cuda))
+        assert torch.equal(qg.cpu(), q) and torch.equal(sg.cpu(), scale), (hd, dtype)
+
+
+def test_int8_decode_on_card_matches_cpu(cuda, monkeypatch):
+    """Decode with an int8 cache, card against CPU, the reduced
+    internvl2-76b in float32. A value whose quotient t / scale lies within
+    float32 rounding of a half step may round the other way on the two
+    devices (t differs in the last bits), and later steps carry that on,
+    so the quantization and the arithmetic are held apart, as in
+    chip_smoke.py: the card's quantization of its K/V equals the CPU's of
+    the same values bit for bit, and the card's logits lie within 2e-2 of
+    the largest of the CPU's decode given the card's quantized values (the
+    attention over the dequantized cache runs in bf16, as the reference's;
+    the bf16 bound of the CPU parity tests)."""
+    cfg = reduced_config(get_config("internvl2-76b"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    quantize = M.quantize_kv
+
+    def decode(device, replay=None):
+        calls = []
+
+        def recorded(t):
+            q, scale = quantize(t) if replay is None else (x.to(t.device)
+                                                           for x in replay[len(calls)])
+            calls.append((t.cpu(), q.cpu(), scale.cpu()))
+            return q, scale
+
+        monkeypatch.setattr(M, "quantize_kv", recorded)
+        cache = M.make_decode_cache(cfg, 2, 12, torch.int8, device=device)
+        ps = _to(params, device)
+        out = [M.decode_step(cfg, ps, cache, toks[:, i:i + 1].to(device), i,
+                             compute_dtype=torch.float32)[0].cpu() for i in range(12)]
+        return torch.stack(out), calls
+
+    lg, calls_g = decode(cuda)
+    lr, _ = decode("cpu", replay=[(q, s) for _, q, s in calls_g])
+    assert len(calls_g) == 2 * 12 * cfg.num_layers
+    for tg, qg, sg in calls_g:
+        q, scale = quantize(tg)
+        assert torch.equal(q, qg) and torch.equal(scale, sg)
+    assert float((lg - lr).abs().max()) <= 2e-2 * float(lr.abs().max())
+
+
 def test_moe_serve_slice_on_card_matches_cpu(cuda):
     """The reduced qwen3-moe-30b-a3b serving slice in float32 on the card
     against ``generate`` on the CPU with the same params and prompts: the
@@ -682,7 +795,7 @@ def test_ssm_scan_staged_chunks_match_plain(cuda, S, Di, N, with_h0):
 
 
 @pytest.mark.parametrize("kernel", ["flash_qwen2", "flash_hymba", "flash_qwen3_moe",
-                                    "scan_hymba"])
+                                    "flash_internvl2", "flash_musicgen", "scan_hymba"])
 def test_chip_smoke_serving_shapes_match_plain(cuda, kernel):
     """The serving-shape cases of chip_smoke.py with its inputs and bounds:
     flash at qwen2-1.5b (B 4, S 512, H 12, KV 2, hd 128), hymba-1.5b (H 25,
@@ -692,7 +805,9 @@ def test_chip_smoke_serving_shapes_match_plain(cuda, kernel):
     if kernel.startswith("flash"):
         B, S, H, KV, hd, window = {"flash_qwen2": (4, 512, 12, 2, 128, 0),
                                    "flash_hymba": (4, 512, 25, 5, 64, 2048),
-                                   "flash_qwen3_moe": (4, 512, 32, 4, 128, 0)}[kernel]
+                                   "flash_qwen3_moe": (4, 512, 32, 4, 128, 0),
+                                   "flash_internvl2": (4, 768, 64, 8, 128, 0),
+                                   "flash_musicgen": (4, 512, 32, 32, 64, 0)}[kernel]
         g = torch.Generator(device=cuda).manual_seed(7)
         q, k, v = (torch.randn(B, n, S, hd, generator=g, device=cuda).bfloat16()
                    for n in (H, KV, KV))

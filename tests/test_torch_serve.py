@@ -5,7 +5,11 @@ The greedy tokens equal those of the same composition of JAX functions
 (``M.prefill``, ``make_decode_cache`` with K/V set at ``[:, :, :S]``,
 ``decode_step``) on the same float32 weights. For hymba-1.5b, whose JAX
 prefill returns no SSM state, the JAX side decodes the prompt token by
-token instead.
+token instead. For internvl2-76b the request's pixel embeds go before the
+prompt in both, and decode starts at vision_prefix + S; with the int8
+cache, JAX ``decode_step`` runs on an ``jnp.int8`` cache seeded with the
+JAX prefill's K/V through the port's ``quantize_kv`` (the reference has no
+int8 prefill path).
 """
 import jax
 import jax.numpy as jnp
@@ -379,3 +383,108 @@ def test_moe_sparse_update_touches_one_expert_of_the_middle_layer():
     assert set(k for k, v in info.dirty.items() if v) == {"params/embed",
                                                           "params/layers/moe/wi"}
     assert info.stats["blocks_written"] == sum(len(v) for v in info.dirty.values())
+
+
+# --------------------------------------------------------------------------- #
+# The vlm family: a vision prefix before the prompt, bf16/float32 and int8 caches
+# --------------------------------------------------------------------------- #
+VLM = "internvl2-76b"
+
+
+def _vlm_weights(seed=0, gain=20.0):
+    jcfg = jax_reduced_config(jax_get_config(VLM))
+    host = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(seed)))
+    host = jax.tree.map(lambda a: a * gain if a.ndim >= 2 else a, host)
+    return jcfg, host
+
+
+def _jax_generate_vlm(jcfg, host, prompts, pixels, tokens, int8):
+    params = jax.tree.map(jnp.asarray, host)
+    logits, pc = JM.prefill(jcfg, params, jnp.asarray(prompts), pixel_embeds=jnp.asarray(pixels),
+                            compute_dtype=jnp.float32, q_chunk=0)
+    Bq, n = prompts.shape[0], pixels.shape[1] + prompts.shape[1]
+    cache = JM.make_decode_cache(jcfg, Bq, n + tokens, jnp.int8 if int8 else jnp.float32)
+    for key in ("k", "v"):
+        if int8:
+            q8, scale = M.quantize_kv(torch.from_numpy(np.asarray(pc[key])))
+            cache[key] = cache[key].at[:, :, :n].set(jnp.asarray(q8.numpy()))
+            cache[key + "_scale"] = cache[key + "_scale"].at[:, :, :n].set(
+                jnp.asarray(scale.numpy()))
+        else:
+            cache[key] = cache[key].at[:, :, :n].set(pc[key])
+    tok = jnp.argmax(logits, axis=-1)[:, None]
+    out = [np.asarray(tok)]
+    for i in range(tokens):
+        step, cache = JM.decode_step(jcfg, params, cache, tok, jnp.int32(n + i),
+                                     compute_dtype=jnp.float32)
+        tok = jnp.argmax(step, axis=-1)[:, None]
+        out.append(np.asarray(tok))
+    return np.asarray(logits), np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8], ids=["float32", "int8"])
+def test_vlm_greedy_tokens_match_jax_composition(kv_dtype):
+    """``serve.run`` on the reduced internvl2-76b (float32 compute): the
+    pixel embeds drawn from the run's seed, the v0 and v1 greedy tokens and
+    prefill logits (1e-5 of the largest) against JAX; the delta publish
+    writes exactly the dirty blocks."""
+    jcfg, host = _vlm_weights()
+    cfg = reduced_config(get_config(VLM))
+    run = serve.run(cfg, device="cpu", batch=B, prompt_len=S, tokens=TOKENS, seed=0,
+                    compute_dtype=torch.float32, kv_dtype=kv_dtype,
+                    params=params_from_numpy(host, "cpu"))
+    pixels = serve.request_pixel_embeds(cfg, B, 0, "cpu")
+    assert pixels.shape == (B, cfg.vision_prefix, cfg.d_model) and pixels.dtype == torch.bfloat16
+    prompts = run.prompts.numpy()
+    for params, (logits, toks) in ((run.params_v0, run.out_v0), (run.params_v1, run.out_v1)):
+        jlogits, jtoks = _jax_generate_vlm(jcfg, params_to_numpy(params), prompts,
+                                           pixels.float().numpy(), TOKENS, kv_dtype is not None)
+        assert toks.shape == (B, TOKENS + 1)
+        np.testing.assert_array_equal(toks.numpy(), jtoks)
+        np.testing.assert_allclose(logits.numpy(), jlogits, rtol=0,
+                                   atol=1e-5 * np.abs(jlogits).max())
+    assert len(set(run.out_v0[1].reshape(-1).tolist())) > 1  # not a collapsed run
+    dirty = run.publish_v1.dirty
+    old, new = flat_tensors({"params": run.params_v0}), flat_tensors({"params": run.params_v1})
+    for name in new:
+        assert dirty[name] == exact_dirty_blocks(new[name], old[name], serve.BLOCK_BYTES)
+    assert run.publish_v1.stats["blocks_written"] == sum(len(v) for v in dirty.values()) > 0
+
+
+def test_seed_cache_quantizes_the_prefill_kv_as_decode_does():
+    """An int8 cache seeded from a prefill holds ``quantize_kv`` of its K/V
+    at [:, :, :S] (scales beyond S stay 1, values 0), within half a scale
+    step of the bf16 K/V; a bf16 cache holds them as they are."""
+    cfg = reduced_config(get_config(VLM))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
+    pixels = serve.request_pixel_embeds(cfg, B, 0, "cpu")
+    _, pc = M.prefill(cfg, params, prompts, pixel_embeds=pixels)
+    n = cfg.vision_prefix + S
+    c8 = serve.seed_cache(cfg, pc, B, n + 4, torch.int8, device="cpu")
+    c16 = serve.seed_cache(cfg, pc, B, n + 4, torch.bfloat16, device="cpu")
+    for key in ("k", "v"):
+        q8, scale = M.quantize_kv(pc[key])
+        assert torch.equal(c8[key][:, :, :n], q8) and torch.equal(c8[key + "_scale"][:, :, :n],
+                                                                  scale)
+        assert bool((c8[key][:, :, n:] == 0).all() and (c8[key + "_scale"][:, :, n:] == 1).all())
+        err = (q8.float() * scale[..., None] - pc[key].float()).abs()
+        assert bool((err <= scale[..., None] * 0.5 * (1 + 1e-6)).all())
+        assert torch.equal(c16[key][:, :, :n], pc[key])
+
+
+def test_launch_serve_takes_kv_dtype_on_the_cpu():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", VLM, "--reduced",
+         "--device", "cpu", "--prompt-len", "16", "--tokens", "4", "--kv-dtype", "int8"],
+        capture_output=True, text=True, env=env, cwd=str(root), timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "8 pixel embeds + 16+4) with the int8 cache" in out.stdout

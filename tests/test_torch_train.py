@@ -6,7 +6,11 @@ JAX and torch run in one process on the same numpy inputs and weights:
   reference's value to 1e-6 relative), and the reference's tail fault;
 * ``loss_fn`` value and gradients against ``jax.value_and_grad`` on the
   reduced configs: float32 to 1e-4 of each leaf's largest gradient, bf16
-  to 5e-2 (the frameworks round bf16 matmuls at other places);
+  to 5e-2 (the frameworks round bf16 matmuls at other places); the vlm
+  config with pixel embeds from a numpy seed, its loss over the text only;
+* ``remat_policy="dots"`` against the reference's ``loss_fn(remat_policy=
+  "dots")`` and bit for bit against the port's default remat, with the
+  products' outputs kept (no ``mm`` recomputed in the backward);
 * one ``make_train_step`` against the reference's step;
 * the reference's system tests on the port, the trainer's dirty sets,
   checkpoints crossing between the packages, and the launcher.
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import ShapeCell as JShapeCell
 from repro.configs.base import get_config as jget_config
@@ -46,6 +51,7 @@ from repro_torch.core.runtime import runtime_for
 from repro_torch.core.tensorstate import TensorStore, flatten_with_names
 from repro_torch.core.types import CachePolicy
 from repro_torch.data.pipeline import DataConfig, synth_batch
+from repro_torch.launch.train import train_batch
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.runtime import (CellPlan, make_decode_step, make_prefill_step,
@@ -131,13 +137,18 @@ def _setup(arch, seed=0, **overrides):
 
 
 def _batch(cfg, B=2, S=32, step=0):
-    return synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B), step)
+    """synth_batch, and pixel embeds for a vlm config (``train_batch``)."""
+    return train_batch(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B),
+                       step)
 
 
 def _torch_batch(batch):
-    return {"tokens": torch.from_numpy(batch["tokens"]).long(),
-            "labels": torch.from_numpy(batch["labels"]).long(),
-            "mask": torch.from_numpy(batch["mask"])}
+    out = {"tokens": torch.from_numpy(batch["tokens"]).long(),
+           "labels": torch.from_numpy(batch["labels"]).long(),
+           "mask": torch.from_numpy(batch["mask"])}
+    if "pixel_embeds" in batch:
+        out["pixel_embeds"] = torch.from_numpy(batch["pixel_embeds"])
+    return out
 
 
 def _torch_loss_and_grads(cfg, host, batch, **kw):
@@ -154,7 +165,10 @@ def _torch_loss_and_grads(cfg, host, batch, **kw):
                                         ("hymba-1.5b", "float32"),
                                         ("falcon-mamba-7b", "float32"),
                                         ("qwen3-moe-30b-a3b", "float32"),
-                                        ("mixtral-8x7b", "float32")])
+                                        ("mixtral-8x7b", "float32"),
+                                        ("internvl2-76b", "float32"),
+                                        ("internvl2-76b", "bfloat16"),
+                                        ("musicgen-large", "float32")])
 def test_loss_fn_value_and_grads_match_jax(arch, dtype):
     jcfg, cfg, jparams, host = _setup(arch)
     batch = _batch(cfg)
@@ -190,11 +204,64 @@ def test_remat_on_equals_remat_off():
         assert torch.equal(on[2][name], off[2][name]), name
 
 
-def test_remat_policy_dots_is_not_ported():
-    _, cfg, _, host = _setup("qwen2-1.5b")
-    with pytest.raises(NotImplementedError):
-        M.loss_fn(cfg, params_from_numpy(host, "cpu"), _torch_batch(_batch(cfg)),
-                  remat_policy="dots")
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "internvl2-76b"])
+def test_remat_policy_dots_matches_jax(arch):
+    """float32 gradients of ``loss_fn(remat_policy="dots")`` in both
+    packages, to LOSS_GRAD_TOL of each leaf's largest."""
+    jcfg, cfg, jparams, host = _setup(arch)
+    batch = _batch(cfg)
+    (jtotal, _), jgrads = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()},
+                             compute_dtype=jnp.float32, ce_chunk=16, remat_policy="dots"),
+        has_aux=True)(jparams)
+    total, _, grads = _torch_loss_and_grads(cfg, host, batch, compute_dtype=torch.float32,
+                                            ce_chunk=16, remat_policy="dots")
+    assert float(total.detach()) == pytest.approx(float(jtotal), rel=1e-5)
+    jflat = dict(flatten_with_names(jax.tree.map(np.asarray, jgrads)))
+    for name, g in grads.items():
+        assert _rel_err(g, jflat[name]) <= LOSS_GRAD_TOL["float32"], name
+
+
+class _MmCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b",
+                                  "internvl2-76b"])
+def test_remat_policy_dots_equals_default_remat_and_keeps_the_products(arch):
+    """The same loss and gradients, bit for bit, with "dots" and with the
+    whole layer recomputed; and the backward of "dots" recomputes no
+    product with no batch dimension: its backward runs two ``mm`` for each
+    of the forward's (the gradients of input and weight) and the CE
+    chunks' recompute, nothing else, while the default's backward runs the
+    layers' products again (all but each layer's last, whose output no
+    backward needs: the recompute stops early)."""
+    _, cfg, _, host = _setup(arch)
+    batch = _torch_batch(_batch(cfg))
+    runs = {}
+    for policy in (None, "dots"):
+        params = params_from_numpy(host, "cpu")
+        flat = flat_tensors(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        with _MmCount() as fwd:
+            total, _ = M.loss_fn(cfg, params, batch, compute_dtype=torch.float32, ce_chunk=16,
+                                 remat_policy=policy)
+        with _MmCount() as bwd:
+            grads = torch.autograd.grad(total, list(flat.values()))
+        runs[policy] = (total, dict(zip(flat, grads)), fwd.mm, bwd.mm)
+    (t0, g0, f0, b0), (t1, g1, f1, b1) = runs[None], runs["dots"]
+    assert torch.equal(t0, t1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+    n_ce = 2      # the CE head's products, one a chunk, recomputed in both
+    assert f0 == f1 and b1 == 2 * f1 + n_ce and b0 > b1, (f0, b0, b1)
 
 
 def _jax_state(jparams):
@@ -272,6 +339,27 @@ def test_prefill_and_decode_steps_run_the_model():
     got, _ = make_decode_step(plan)(params, caches[0], {"tokens": nxt, "cur_index": 32})
     want, _ = M.decode_step(cfg, params, caches[1], nxt, 32, compute_dtype=torch.float32)
     assert torch.equal(got, want) and torch.equal(caches[0]["k"], caches[1]["k"])
+
+
+def test_cell_plan_kv_dtype_makes_the_decode_cache():
+    """``make_decode_cache(plan)``: the cell's (global batch, seq_len) cache
+    in ``plan.kv_dtype`` (int8, with scales), else in the compute type; the
+    step builder's decode runs on either."""
+    from repro_torch.models.runtime import make_decode_cache
+    _, cfg, _, host = _setup("internvl2-76b")
+    params = params_from_numpy(host, "cpu")
+    shape = ShapeCell("d", "decode", 16, 2)
+    plain = make_decode_cache(CellPlan(cfg, shape, compute_dtype=torch.float32), "cpu")
+    assert set(plain) == {"k", "v"} and plain["k"].dtype == torch.float32
+    assert plain["k"].shape == (cfg.num_layers, 2, 16, cfg.num_kv_heads, cfg.head_dim)
+    plan = CellPlan(cfg, shape, compute_dtype=torch.float32, kv_dtype=torch.int8)
+    cache = make_decode_cache(plan, "cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].shape == plain["k"].shape[:-1]
+    toks = torch.from_numpy(_batch(cfg)["tokens"][:, :1]).long()
+    got, _ = make_decode_step(plan)(params, cache, {"tokens": toks, "cur_index": 0})
+    want, _ = M.decode_step(cfg, params, M.make_decode_cache(cfg, 2, 16, torch.int8, device="cpu"),
+                            toks, 0, compute_dtype=torch.float32)
+    assert torch.equal(got, want) and bool(cache["k_scale"][:, :, 0].ne(1).any())
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
@@ -527,11 +615,38 @@ def test_launch_train_run_checks_moe():
         assert np.isfinite(res.metrics["loss"]) and res.metrics["aux_loss"] > 0
 
 
-def _check_train_run(cfg):
+def test_launch_train_run_checks_vlm_with_dots():
+    """The same for the reduced internvl2-76b, its batches with pixel
+    embeds, with ``remat_policy="dots"``; and the launcher's options."""
+    _check_train_run(reduced_config(get_config("internvl2-76b")), remat_policy="dots")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "internvl2-76b",
+         "--reduced", "--device", "cpu", "--steps", "2", "--remat-policy", "dots"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "step    2 loss=" in out.stdout and "restored step 2" in out.stdout
+
+
+def test_train_batch_adds_seeded_pixel_embeds_for_vlm():
+    from repro_torch.launch.train import train_batch
+    vlm = reduced_config(get_config("internvl2-76b"))
+    dcfg = DataConfig(vocab_size=vlm.vocab_size, seq_len=16, global_batch=2, seed=3)
+    a, b, c = train_batch(vlm, dcfg, 0), train_batch(vlm, dcfg, 0), train_batch(vlm, dcfg, 1)
+    assert a["pixel_embeds"].shape == (2, vlm.vision_prefix, vlm.d_model)
+    assert a["pixel_embeds"].dtype == np.float32 and a["tokens"].shape == (2, 16)
+    assert np.array_equal(a["pixel_embeds"], b["pixel_embeds"])
+    assert not np.array_equal(a["pixel_embeds"], c["pixel_embeds"])
+    dense = reduced_config(get_config("qwen2-1.5b"))
+    assert set(train_batch(dense, dcfg, 0)) == {"tokens", "labels", "mask"}
+
+
+def _check_train_run(cfg, **kw):
     from repro_torch.launch import train
     from repro_torch.state.checkpoint import exact_dirty_blocks
     r = train.run(cfg, device="cpu", steps=3, batch=2, seq=32, ckpt_every=2,
-                  keep_states=True, serve_tokens=4)
+                  keep_states=True, serve_tokens=4, **kw)
     assert [s.dirty is None for s in r.saves] == [True, False]
     assert len(r.states) == 4 and r.restored_step == 3
     for i, res in enumerate(r.steps):
