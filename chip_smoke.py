@@ -103,7 +103,21 @@ non-zero at the first failure:
      dirty set held against the exact byte compare and ``blocks_written``,
      the restore against the trainer's state and the served params against
      the restore, bit for bit;
-  10. one JSON line of per-kernel numbers, then the result line
+  10. the distribution plan (``dist``) on a 1-rank NCCL group over the
+     card (``launch.mesh.make_host_mesh``): one qwen2-1.5b AdamW step at
+     full width and depth (B 4 x S 512, bf16) through ``plan_cell`` with
+     DTensor state and batch, against the unsharded step from the same
+     state (the train phase's bounds; bit-identity printed; 56 forward and
+     28 backward flash launches, so the plan's ``local_map`` reaches the
+     kernel); the dry run of the same cell on fake tensors against the card:
+     its FLOPs must equal ``FlopCounterMode``'s count of the card step plus
+     the flash kernels' formula, and the predicted peak memory and roofline
+     step time (datasheet constants) are printed beside
+     ``max_memory_allocated``, the device busy time (``torch.profiler``)
+     and the wall time; then ``moe_ffn_a2a`` at qwen3-moe-30b-a3b's width
+     (B 4 x S 512, bf16) against ``moe_ffn``, outputs and routing bit for
+     bit (the exchange over one rank is an identity); the phase's seconds;
+  11. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
      over the full-width runs (``launches_by_path`` splits it); its times
      and bound are at the qwen2-1.5b shapes for flash attention, its
@@ -1747,6 +1761,147 @@ def train_dots_phase(torch, M, runtime, adamw, synth, counters, cfg):
     return launches
 
 
+DIST_BUDGET_S = 60           # the dist phase's seconds, printed beside its time
+
+
+def dist_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg, moe_cfg):
+    """The distribution plan on a 1-rank NCCL group over the card
+    (``make_host_mesh``): one train step of ``cfg`` at full width and depth
+    through ``plan_cell`` (DTensor state and batch) against the unsharded
+    step from the same state; the dry run of the same cell (fake tensors)
+    against the card's peak memory, FLOPs and times; ``moe_ffn_a2a`` at
+    ``moe_cfg``'s width against ``moe_ffn``. Returns the planned step's
+    kernel launches."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun, perf, roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import attention_flops
+
+    t_start = time.perf_counter()
+    B, S = 4, 512
+    shape = runtime.ShapeCell("t", "train", S, B)
+    opt_cfg = adamw.AdamWConfig(lr_peak=1e-4, warmup_steps=2, decay_steps=100)
+    fa, fb = counters["flash_attention"], counters["flash_attention_bwd"]
+    mesh = make_host_mesh("cuda")
+    try:
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        state = {"params": params, "opt": adamw.init_opt_state(params)}
+        del params
+        batch = synth(cfg, B, S, step=0)
+        plan = runtime.plan_cell(cfg, shape, mesh)
+        step = runtime.make_train_step(plan, opt_cfg)
+        # the DTensor state's local tensors are views of the state's
+        sstate, sbatch = runtime.shard_state(plan, mesh, state), runtime.shard_batch(
+            plan, mesh, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        with FlopCounterMode(display=False) as fc:
+            planned, m_plan = step(sstate, sbatch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        path_launches = {name: fn.launches for name, fn in counters.items()}
+        launches = (fa.launches_sm90, fa.launches_simt, fb.launches_sm90, fb.launches_simt)
+        L = cfg.num_layers
+        check(launches == (2 * L, 0, L, 0),
+              f"dist step: flash launches (forward sm90, simt, backward sm90, simt) "
+              f"{launches}, want {(2 * L, 0, L, 0)}")
+        q = torch.empty(B, S, cfg.num_heads, cfg.head_dim, device="meta")
+        f_fwd, f_bwd = attention_flops(q, q, q, window=cfg.sliding_window)
+        n_fwd, n_bwd = fa.launches, fb.launches
+        real_flops = fc.get_total_flops() + n_fwd * f_fwd + n_bwd * f_bwd
+        planned = {k: t.full_tensor() for k, t in _flat(planned["params"]).items()}
+        t0 = time.perf_counter()
+        new, _ = step(sstate, sbatch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        del new
+        trace = ROOT / "build" / "profile" / "dist_trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            new, _ = step(sstate, sbatch)
+            torch.cuda.synchronize()
+        del new, sstate, sbatch
+        prof.export_chrome_trace(str(trace))
+        busy_s = sum(perf.device_time(json.loads(trace.read_text())["traceEvents"])
+                     ["kernel"].values()) / 1e3
+        new, m_one = runtime.make_train_step(
+            runtime.CellPlan(cfg, shape, ce_chunk=512), opt_cfg)(state, batch)
+        same = all(torch.equal(t, planned[k]) for k, t in _flat(new["params"]).items())
+        del new, planned, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        r_loss = abs(m_plan["loss"] - m_one["loss"]) / abs(m_one["loss"])
+        r_norm = abs(m_plan["grad_norm"] - m_one["grad_norm"]) / abs(m_one["grad_norm"])
+        check(r_loss <= TRAIN_LOSS_REL and r_norm <= TRAIN_GNORM_REL,
+              f"dist step vs unsharded: loss rel {r_loss}, grad norm rel {r_norm}")
+        phase("dist", f"{cfg.name} full width, {L} layers, B{B} x S{S}, bf16, one AdamW step "
+                      f"through plan_cell on a 1-rank NCCL group vs the unsharded step from the "
+                      f"same state: loss {m_plan['loss']:.6f} vs {m_one['loss']:.6f} (rel "
+                      f"{r_loss:.2e}, bound {TRAIN_LOSS_REL}), grad norm "
+                      f"{m_plan['grad_norm']:.6f} vs {m_one['grad_norm']:.6f} (rel {r_norm:.2e}, "
+                      f"bound {TRAIN_GNORM_REL}); new params bit-identical: {same}; flash "
+                      f"launches {launches[0]} forward, {launches[2]} backward (sm90)")
+
+        t0 = time.perf_counter()
+        rec = dryrun.trace_record(cfg, shape, mesh)
+        trace_s = time.perf_counter() - t0
+        a = rec["analysis"]
+        check(a["flops_per_device"] == real_flops,
+              f"dry-run FLOPs {a['flops_per_device']} != the card step's {real_flops} "
+              f"(FlopCounterMode {fc.get_total_flops()} + flash formula)")
+        roof = roofline.analyze(dict(rec, ok=True, shape=shape.name, mesh="host"))
+        pred_peak = rec["memory"]["peak_bytes_est"]
+        phase("dist", f"dry run of the same cell (1x1 mesh, fake tensors, {trace_s:.1f} s): "
+                      f"FLOPs predicted {a['flops_per_device']} == card {real_flops} "
+                      f"(FlopCounterMode {fc.get_total_flops()} + flash {n_fwd} x "
+                      f"{f_fwd} + {n_bwd} x {f_bwd}); peak device memory predicted "
+                      f"{pred_peak / 2**30:.2f} GiB vs max_memory_allocated "
+                      f"{peak / 2**30:.2f} GiB (card / predicted {peak / pred_peak:.3f}); "
+                      f"roofline step {roof['step_s'] * 1e3:.2f} ms ({roof['dominant']}; "
+                      f"compute {roof['compute_s'] * 1e3:.2f}, memory "
+                      f"{roof['memory_s'] * 1e3:.2f} ms, datasheet constants) vs device busy "
+                      f"{busy_s * 1e3:.2f} ms (ratio {busy_s / roof['step_s']:.2f}) and wall "
+                      f"{wall_s * 1e3:.2f} ms (ratio {wall_s / roof['step_s']:.2f})")
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        D, E, F = moe_cfg.d_model, moe_cfg.num_experts, moe_cfg.moe_d_ff
+
+        def rnd(*shape, scale=0.02):
+            return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+        x, router = rnd(B, S, D, scale=1.0), rnd(D, E)
+        wi, wg, wo = rnd(E, D, F), rnd(E, D, F), rnd(E, F, D)
+        kw = dict(num_experts=E, top_k=moe_cfg.num_experts_per_tok,
+                  capacity_factor=moe_cfg.capacity_factor)
+        with torch.no_grad():
+            with _routing_recorded(moe_mod) as ids_one:
+                y_one, aux_one = moe_mod.moe_ffn(x, router, wi, wg, wo, groups=1, **kw)
+            with _routing_recorded(moe_mod) as ids_a2a:
+                y_a2a, aux_a2a = moe_mod.moe_ffn_a2a(x, router, wi, wg, wo, mesh=mesh,
+                                                     batch_axes=("data",), model_axis="model",
+                                                     seq_axis="model", **kw)
+        torch.cuda.synchronize()
+        flips = _routing_flips(ids_one, ids_a2a)
+        check(torch.equal(y_one, y_a2a) and flips[0] == 0 and len(ids_one) == len(ids_a2a),
+              f"moe_ffn_a2a on one rank vs moe_ffn: max |dy| "
+              f"{(y_one.float() - y_a2a.float()).abs().max().item()}, routing flips {flips}")
+        dist_s = time.perf_counter() - t_start
+        phase("dist", f"moe_ffn_a2a at {moe_cfg.name}'s width (d {D}, {E} experts of {F}, "
+                      f"top-{kw['top_k']}, cf {kw['capacity_factor']}), B{B} x S{S} bf16 on "
+                      f"the 1-rank NCCL group vs moe_ffn: outputs bit-identical, routing "
+                      f"identical ({flips[1]} slots), aux loss {float(aux_a2a):.6f} vs "
+                      f"{float(aux_one):.6f}; phase {dist_s:.1f} s (budget {DIST_BUDGET_S} s)")
+        del x, router, wi, wg, wo, y_one, y_a2a
+    finally:
+        dist.destroy_process_group()
+    return path_launches
+
+
 def _free_host_and_device(torch) -> None:
     """Collect the previous phase's trees (a ServeSlice holds reference
     cycles), give freed heap pages back to the OS and empty the caching
@@ -1874,6 +2029,10 @@ def main() -> int:
         cut = dataclasses.replace(paths[0], num_layers=TXN_LAYERS)
         by_path[f"train_txn {paths[0].name} ({TXN_LAYERS} layer)"] = train_txn_phase(
             torch, M, train, bridge, exact_dirty_blocks, flatten_with_names, counters, cut)
+        _free_host_and_device(torch)
+        by_path[f"dist {paths[0].name}"] = dist_phase(
+            torch, M, runtime, adamw, synth, counters, moe_mod, paths[0],
+            get_config("qwen3-moe-30b-a3b"))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -24,9 +24,11 @@ reference's order:
      slice (``launch/serve.py``): prefill of ``--batch`` prompts of
      ``--seq`` tokens and greedy decoding.
 
-``--reduced`` takes the tiny same-family config of the CPU tests. The
-reference's ``--full`` (lowering the full config on the production mesh)
-has no counterpart until the meta-device dry run (ROADMAP, Queue 1).
+``--reduced`` takes the tiny same-family config of the CPU tests.
+``--full`` is the reference's: it traces the FULL config's ``train_4k``
+cell on the production pod mesh through ``launch.dryrun.run_cell`` (fake
+process group, fake tensors, on the CPU), prints one device's memory and
+cost, and returns; real devices would run the same step and plan.
 """
 from __future__ import annotations
 
@@ -164,8 +166,10 @@ def main() -> None:
     ap.add_argument("--arch", required=True, choices=list_configs())
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
-                    help="the tiny same-family config of the CPU tests; the full "
-                         "config's dry run (the reference's --full) is not ported yet")
+                    help="the tiny same-family config of the CPU tests")
+    ap.add_argument("--full", action="store_true",
+                    help="trace the FULL config's train_4k cell on the production mesh "
+                         "(the dry run; nothing runs on a device)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=64)
@@ -175,6 +179,22 @@ def main() -> None:
                     help="dots: keep the outputs of the products with no batch dimension "
                          "(default: recompute the whole layer)")
     args = ap.parse_args()
+
+    if args.full:
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.run_cell(args.arch, "train_4k", "pod", force=True)
+        if not rec.get("ok"):
+            raise SystemExit(f"dry run failed: {rec.get('error')}")
+        mem, a = rec["memory"], rec["analysis"]
+        print(f"{args.arch} train_4k on the pod mesh {rec['mesh_shape']}, per device: "
+              f"arguments {mem['argument_bytes'] / 2**30:.2f} GiB, peak "
+              f"{mem['peak_bytes_est'] / 2**30:.2f} GiB; {a['flops_per_device']:.4e} FLOPs, "
+              f"{a['bytes_per_device']:.4e} HBM bytes, "
+              f"{a['collective_bytes_per_device']:.4e} collective bytes "
+              f"{a['collective_counts']}")
+        print("full config traced; attach real devices to execute")
+        return
 
     cfg = get_config(args.arch)
     if args.reduced:

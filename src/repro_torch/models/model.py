@@ -1,4 +1,5 @@
-"""Decoder: param defs, init, training loss, prefill and decode, in PyTorch.
+"""Decoder: param defs, init, sharding specs, training loss, prefill and
+decode, in PyTorch.
 
 Port of ``repro.models.model`` for every family of ``configs/``: dense,
 moe, ssm, hybrid, vlm (a ``vision_prefix`` of pixel embeddings before the
@@ -6,15 +7,25 @@ text) and audio. Parameters are a plain nested dict of tensors with the
 reference's layer-stacked names and shapes (``layers/attn/wq`` is (L, D, H),
 ``layers/moe/wi`` (L, E, D, F)), so one FaaSFS snapshot loads in either
 package. The decoder stack is a Python loop over the stacked layers.
+
+One table of ``ParamDef`` drives initialization, the abstract trees and the
+sharding specs (``param_partition_specs``, the reference's rules, leaf by
+leaf). Under a plan the params and activations are DTensors
+(``repro_torch.models.runtime``): ``ActSharding`` holds the reference's
+activation specs and its constraint points redistribute there; the
+attention and scan kernels run on each rank's shards (``on_shards``). With
+``NO_SHARDING`` and plain tensors every constraint point returns its input,
+so the one-device paths run the ops they ran without a plan.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
@@ -22,14 +33,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_xla, decode_attention_xla
 from repro_torch.models.layers import (
+    Spec,
     apply_rope,
+    attention_flops,
+    constrain,
+    counted_kernel,
     cross_entropy_chunked,
     embed_tokens,
+    gather_fsdp,
+    on_shards,
     rms_norm,
     rms_norm_headwise,
+    spec,
     swiglu_mlp,
 )
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_ffn_a2a
 
 PyTree = Dict
 
@@ -41,73 +59,82 @@ PyTree = Dict
 class ParamDef:
     path: Tuple[str, ...]
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"  # normal | out_normal | zeros | ones | ssm_A | dt_bias
 
 
 def param_defs(cfg: ModelConfig) -> List[ParamDef]:
     D, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
     defs: List[ParamDef] = [
-        ParamDef(("embed",), (V, D)),
-        ParamDef(("final_norm",), (D,), "ones"),
+        ParamDef(("embed",), (V, D), ("vocab", "residual")),
+        ParamDef(("final_norm",), (D,), (None,), "ones"),
     ]
     if not cfg.tie_embeddings:
-        defs.append(ParamDef(("lm_head",), (D, V)))
+        defs.append(ParamDef(("lm_head",), (D, V), ("residual", "vocab")))
+    Lx = (L,)
+    lax_ = ("layers",)
     if cfg.has_attention:
-        H, KV = cfg.q_dim, cfg.kv_dim
+        H, KV, hd = cfg.q_dim, cfg.kv_dim, cfg.head_dim
         defs += [
-            ParamDef(("layers", "attn", "wq"), (L, D, H)),
-            ParamDef(("layers", "attn", "wk"), (L, D, KV)),
-            ParamDef(("layers", "attn", "wv"), (L, D, KV)),
-            ParamDef(("layers", "attn", "wo"), (L, H, D), "out_normal"),
-            ParamDef(("layers", "ln1"), (L, D), "ones"),
+            ParamDef(("layers", "attn", "wq"), Lx + (D, H), lax_ + ("residual", "heads")),
+            ParamDef(("layers", "attn", "wk"), Lx + (D, KV), lax_ + ("residual", "kv")),
+            ParamDef(("layers", "attn", "wv"), Lx + (D, KV), lax_ + ("residual", "kv")),
+            ParamDef(("layers", "attn", "wo"), Lx + (H, D), lax_ + ("heads", "residual"),
+                     "out_normal"),
+            ParamDef(("layers", "ln1"), Lx + (D,), lax_ + (None,), "ones"),
         ]
         if cfg.qkv_bias:
             defs += [
-                ParamDef(("layers", "attn", "bq"), (L, H), "zeros"),
-                ParamDef(("layers", "attn", "bk"), (L, KV), "zeros"),
-                ParamDef(("layers", "attn", "bv"), (L, KV), "zeros"),
+                ParamDef(("layers", "attn", "bq"), Lx + (H,), lax_ + ("heads",), "zeros"),
+                ParamDef(("layers", "attn", "bk"), Lx + (KV,), lax_ + ("kv",), "zeros"),
+                ParamDef(("layers", "attn", "bv"), Lx + (KV,), lax_ + ("kv",), "zeros"),
             ]
         if cfg.qk_norm:
             defs += [
-                ParamDef(("layers", "attn", "q_norm"), (L, cfg.head_dim), "ones"),
-                ParamDef(("layers", "attn", "k_norm"), (L, cfg.head_dim), "ones"),
+                ParamDef(("layers", "attn", "q_norm"), Lx + (hd,), lax_ + (None,), "ones"),
+                ParamDef(("layers", "attn", "k_norm"), Lx + (hd,), lax_ + (None,), "ones"),
             ]
     if cfg.has_ssm:
         Di, R, N, K = cfg.d_inner, cfg.dt_rank, cfg.ssm_state, cfg.ssm_conv
         defs += [
-            ParamDef(("layers", "ssm", "in_proj"), (L, D, 2 * Di)),
-            ParamDef(("layers", "ssm", "conv_w"), (L, Di, K)),
-            ParamDef(("layers", "ssm", "conv_b"), (L, Di), "zeros"),
-            ParamDef(("layers", "ssm", "x_proj"), (L, Di, R + 2 * N)),
-            ParamDef(("layers", "ssm", "dt_proj"), (L, R, Di)),
-            ParamDef(("layers", "ssm", "dt_bias"), (L, Di), "dt_bias"),
-            ParamDef(("layers", "ssm", "A_log"), (L, Di, N), "ssm_A"),
-            ParamDef(("layers", "ssm", "D"), (L, Di), "ones"),
-            ParamDef(("layers", "ssm", "out_proj"), (L, Di, D), "out_normal"),
+            ParamDef(("layers", "ssm", "in_proj"), Lx + (D, 2 * Di), lax_ + ("residual", "dinner")),
+            ParamDef(("layers", "ssm", "conv_w"), Lx + (Di, K), lax_ + ("dinner", None)),
+            ParamDef(("layers", "ssm", "conv_b"), Lx + (Di,), lax_ + ("dinner",), "zeros"),
+            ParamDef(("layers", "ssm", "x_proj"), Lx + (Di, R + 2 * N), lax_ + ("dinner", None)),
+            ParamDef(("layers", "ssm", "dt_proj"), Lx + (R, Di), lax_ + (None, "dinner")),
+            ParamDef(("layers", "ssm", "dt_bias"), Lx + (Di,), lax_ + ("dinner",), "dt_bias"),
+            ParamDef(("layers", "ssm", "A_log"), Lx + (Di, N), lax_ + ("dinner", None), "ssm_A"),
+            ParamDef(("layers", "ssm", "D"), Lx + (Di,), lax_ + ("dinner",), "ones"),
+            ParamDef(("layers", "ssm", "out_proj"), Lx + (Di, D), lax_ + ("dinner", "residual"),
+                     "out_normal"),
         ]
         if cfg.family == "ssm":
-            defs.append(ParamDef(("layers", "ln1"), (L, D), "ones"))
+            defs.append(ParamDef(("layers", "ln1"), Lx + (D,), lax_ + (None,), "ones"))
     if cfg.family == "hybrid":
         defs += [
-            ParamDef(("layers", "attn_branch_norm"), (L, D), "ones"),
-            ParamDef(("layers", "ssm_branch_norm"), (L, D), "ones"),
+            ParamDef(("layers", "attn_branch_norm"), Lx + (D,), lax_ + (None,), "ones"),
+            ParamDef(("layers", "ssm_branch_norm"), Lx + (D,), lax_ + (None,), "ones"),
         ]
     if cfg.is_moe:
         E, Fm = cfg.num_experts, cfg.moe_d_ff
         defs += [
-            ParamDef(("layers", "moe", "router"), (L, D, E)),
-            ParamDef(("layers", "moe", "wi"), (L, E, D, Fm)),
-            ParamDef(("layers", "moe", "wg"), (L, E, D, Fm)),
-            ParamDef(("layers", "moe", "wo"), (L, E, Fm, D), "out_normal"),
-            ParamDef(("layers", "ln2"), (L, D), "ones"),
+            ParamDef(("layers", "moe", "router"), Lx + (D, E), lax_ + ("residual", None)),
+            ParamDef(("layers", "moe", "wi"), Lx + (E, D, Fm),
+                     lax_ + ("experts", "residual", "expert_ffn")),
+            ParamDef(("layers", "moe", "wg"), Lx + (E, D, Fm),
+                     lax_ + ("experts", "residual", "expert_ffn")),
+            ParamDef(("layers", "moe", "wo"), Lx + (E, Fm, D),
+                     lax_ + ("experts", "expert_ffn", "residual"), "out_normal"),
+            ParamDef(("layers", "ln2"), Lx + (D,), lax_ + (None,), "ones"),
         ]
     elif cfg.d_ff > 0:
         F = cfg.d_ff
         defs += [
-            ParamDef(("layers", "mlp", "wi"), (L, D, F)),
-            ParamDef(("layers", "mlp", "wg"), (L, D, F)),
-            ParamDef(("layers", "mlp", "wo"), (L, F, D), "out_normal"),
-            ParamDef(("layers", "ln2"), (L, D), "ones"),
+            ParamDef(("layers", "mlp", "wi"), Lx + (D, F), lax_ + ("residual", "ffn")),
+            ParamDef(("layers", "mlp", "wg"), Lx + (D, F), lax_ + ("residual", "ffn")),
+            ParamDef(("layers", "mlp", "wo"), Lx + (F, D), lax_ + ("ffn", "residual"),
+                     "out_normal"),
+            ParamDef(("layers", "ln2"), Lx + (D,), lax_ + (None,), "ones"),
         ]
     return defs
 
@@ -188,9 +215,187 @@ def _unbind_layers(layers: PyTree, n: int) -> List[PyTree]:
     return [_tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> PyTree:
+    """The param tree's shapes and types as tensors on the meta device
+    (no storage): the reference's ``ShapeDtypeStruct`` tree."""
+    params: Dict = {}
+    for d in param_defs(cfg):
+        _set_path(params, d.path, torch.empty(d.shape, dtype=dtype, device="meta"))
+    return params
+
+
+def logical_specs(cfg: ModelConfig) -> PyTree:
+    specs: Dict = {}
+    for d in param_defs(cfg):
+        _set_path(specs, d.path, d.logical)
+    return specs
+
+
+def param_partition_specs(
+    cfg: ModelConfig,
+    rules: Dict[Optional[str], Optional[Any]],
+    axis_sizes: Optional[Dict[str, int]] = None,
+) -> PyTree:
+    """Map logical axes -> mesh axes per ``rules`` (e.g. train FSDP+TP): a
+    tree of specs (``layers.spec`` tuples, the reference's
+    ``PartitionSpec`` entries).
+
+    Shape-aware: a dim whose size does not divide its mesh axis is left
+    unsharded (the reference's jit argument shardings require even
+    division), and a mesh axis claimed by two dims of the same tensor goes
+    to the earlier dim (e.g. mixtral's E=8 cannot take ``model``=16, so the
+    per-expert FFN dim inherits it; qwen3's E=128 can, so the FFN dim is
+    dropped).
+    """
+    specs: Dict = {}
+    for d in param_defs(cfg):
+        axes = []
+        used = set()
+        for dim, logical in zip(d.shape, d.logical):
+            ax = rules.get(logical, None)
+            if ax is None:
+                axes.append(None)
+                continue
+            key = ax if isinstance(ax, tuple) else (ax,)
+            total = 1
+            for a in key:
+                total *= axis_sizes.get(a, 1) if axis_sizes else 1
+            if (axis_sizes is not None and dim % total != 0) or any(a in used for a in key):
+                axes.append(None)
+                continue
+            used.update(key)
+            axes.append(ax)
+        _set_path(specs, d.path, spec(*axes))
+    return specs
+
+
+# --------------------------------------------------------------------------- #
+# Activation sharding bundle
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ActSharding:
+    """Specs of the activation constraint points (None => unconstrained),
+    the reference's fields. ``moe_a2a`` holds ``moe_ffn_a2a``'s mesh
+    arguments (mesh, batch_axes, model_axis, seq_axis), None for the
+    global-view dispatch."""
+
+    residual: Optional[Spec] = None      # (B, S, D)
+    logits: Optional[Spec] = None        # (B, chunk, V) of each CE chunk
+    moe_tokens: Optional[Spec] = None    # (G, Tg, D) grouped tokens
+    moe_buf: Optional[Spec] = None       # (G, E, C, D) dispatch buffer
+    moe_groups: int = 1
+    moe_a2a: Optional[Any] = None
+    kv_cache: Optional[Spec] = None      # (L, B, S, KV, hd)
+    decode_residual: Optional[Spec] = None  # (B, 1, D)
+
+    def res(self, x):
+        return constrain(x, self.residual)
+
+    def dres(self, x):
+        return constrain(x, self.decode_residual)
+
+
+NO_SHARDING = ActSharding()
+
+
 # --------------------------------------------------------------------------- #
 # Blocks
 # --------------------------------------------------------------------------- #
+def _kernel_specs(cfg: ModelConfig, shardings: ActSharding, x):
+    """Specs of a kernel's (B, S, heads or channels, ...) operands on each
+    rank's shards: batch on the plan's batch axes; the per-head (or
+    per-channel) dim on ``model`` when every count in ``per_model`` divides
+    it; S, which the kernels reduce over, whole."""
+    res = shardings.residual or shardings.decode_residual or (None,)
+    n = _model_size(x)
+
+    def specs(per_model, *trailing):
+        m = "model" if n and all(c % n == 0 for c in per_model) else None
+        return spec(res[0], None, m, *trailing), m
+    return specs
+
+
+def _model_size(x) -> int:
+    mesh = x.device_mesh
+    return mesh.size(mesh.mesh_dim_names.index("model")) if "model" in mesh.mesh_dim_names else 0
+
+
+def _kv_heads_per_shard(H: int, KV: int, n: int) -> Optional[List[int]]:
+    """When the query heads split over n ``model`` ranks but the KV heads do
+    not: the KV heads each rank's query heads read, rank after rank (a
+    rank's heads cover whole groups, or share one KV head); None when the
+    query heads do not split either."""
+    if not n or H % n or not KV % n:
+        return None
+    h, g = H // n, H // KV
+    if h % g and g % h:
+        return None
+    per = max(1, h // g)
+    return [r * h // g + j for r in range(n) for j in range(per)]
+
+
+def _attention(cfg, q, k, v, shardings, *, q_chunk: int, attn_impl: str):
+    """``attention_xla`` (the flash kernel on the card); under a plan on
+    each rank's shards: batch on the batch axes and the heads on ``model``
+    when the query heads divide it. When the KV heads do not, K and V are
+    first gathered to the KV heads each rank's query heads read, rank after
+    rank (the grouped heads stay grouped); with neither split the heads
+    stay whole."""
+    def fn(q, k, v):
+        return attention_xla(q, k, v, causal=True, window=cfg.sliding_window,
+                             q_chunk=q_chunk, impl=attn_impl)
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    specs = _kernel_specs(cfg, shardings, q)
+    s, _ = specs((cfg.num_heads, cfg.num_kv_heads), None)
+    sk = s
+    idx = _kv_heads_per_shard(cfg.num_heads, cfg.num_kv_heads, _model_size(q))
+    if idx is not None:
+        s, _ = specs((cfg.num_heads,), None)
+        sk = spec(s[0], None, None, None)
+        rows = torch.tensor(idx, device=k.device)
+        k = constrain(k.index_select(2, rows), sk)
+        v = constrain(v.index_select(2, rows), sk)
+        sk = s
+    flops = functools.partial(attention_flops, window=cfg.sliding_window)
+    return on_shards(counted_kernel("flash_attention", fn, flops), (q, k, v), (s, sk, sk), (s,))
+
+
+def _split_heads(t, B: int, S: int, heads: int, hd: int):
+    """(B, S, heads * hd) -> (B, S, heads, hd). A DTensor whose last dim a
+    mesh axis splits other than by whole heads has that axis gathered
+    first (DTensor reshapes only even splits)."""
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.ndim - 1
+        want = [Replicate() if isinstance(p, Shard) and p.dim == last
+                and heads % mesh.size(i) else p for i, p in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(mesh, want)
+    return t.reshape(B, S, heads, hd)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(B, S, heads, hd) -> (B, S, heads * hd) on DTensors, whose gradient
+    is split back by ``_split_heads`` (a gradient split over a mesh axis
+    other than by whole heads is gathered first)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.dims = t.shape
+        return t.reshape(*t.shape[:2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split_heads(g, *ctx.dims)
+
+
+def _merge_heads(t):
+    if isinstance(t, DTensor):
+        return _MergeHeads.apply(t)
+    return t.reshape(*t.shape[:2], -1)
+
+
 def _qkv(cfg: ModelConfig, ap: Dict, h: torch.Tensor, positions: torch.Tensor):
     B, S, _ = h.shape
     q = h @ ap["wq"]
@@ -198,9 +403,9 @@ def _qkv(cfg: ModelConfig, ap: Dict, h: torch.Tensor, positions: torch.Tensor):
     v = h @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _split_heads(q, B, S, cfg.num_heads, cfg.head_dim)
+    k = _split_heads(k, B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v, B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm_headwise(q, ap["q_norm"], cfg.norm_eps)
         k = rms_norm_headwise(k, ap["k_norm"], cfg.norm_eps)
@@ -209,19 +414,21 @@ def _qkv(cfg: ModelConfig, ap: Dict, h: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _attn_branch(cfg, lp, h, positions, *, q_chunk: int, attn_impl: str):
-    B, S, _ = h.shape
+def _attn_branch(cfg, lp, h, positions, shardings, *, q_chunk: int, attn_impl: str):
     ap = lp["attn"]
     q, k, v = _qkv(cfg, ap, h, positions)
-    out = attention_xla(q, k, v, causal=True, window=cfg.sliding_window,
-                        q_chunk=q_chunk, impl=attn_impl)
-    return out.reshape(B, S, cfg.q_dim) @ ap["wo"], {"k": k, "v": v}
+    out = _attention(cfg, q, k, v, shardings, q_chunk=q_chunk, attn_impl=attn_impl)
+    return _merge_heads(out) @ ap["wo"], {"k": k, "v": v}
 
 
-def _ssm_branch(cfg, lp, h, *, scan_impl: str):
+def _ssm_branch(cfg, lp, h, shardings, *, scan_impl: str):
+    scan = None
+    if isinstance(h, DTensor):
+        specs = _kernel_specs(cfg, shardings, h)
+        scan = functools.partial(ssm_mod.sharded_scan, specs=specs)
     out, (conv, hs) = ssm_mod.mamba_block(
         h, lp["ssm"], dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state,
-        impl=scan_impl, return_state=True)
+        impl=scan_impl, return_state=True, scan=scan)
     return out, {"conv": conv, "ssm": hs}
 
 
@@ -231,43 +438,51 @@ def _mix(cfg, lp, attn_out, ssm_out):
                   + rms_norm(ssm_out, lp["ssm_branch_norm"], cfg.norm_eps))
 
 
-def _ffn_branch(cfg, lp, h):
+def _ffn_branch(cfg, lp, h, shardings: ActSharding = NO_SHARDING):
     """The block's feed-forward half on the normed ``h``: (y, aux), aux the
     MoE load-balance term (float32), None for the dense MLP. The tokens are
-    routed as one group, as with the reference's unsharded ``ActSharding``."""
+    routed in ``shardings.moe_groups`` groups (one without a plan), or by
+    ``moe_ffn_a2a`` when the plan sets ``moe_a2a``."""
     if cfg.is_moe:
         mp = lp["moe"]
-        return moe_ffn(h, mp["router"], mp["wi"], mp["wg"], mp["wo"],
-                       num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
-                       capacity_factor=cfg.capacity_factor)
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                  capacity_factor=cfg.capacity_factor)
+        if shardings.moe_a2a is not None:
+            return moe_ffn_a2a(h, mp["router"], mp["wi"], mp["wg"], mp["wo"], **kw,
+                               **shardings.moe_a2a)
+        return moe_ffn(h, mp["router"], mp["wi"], mp["wg"], mp["wo"], **kw,
+                       groups=shardings.moe_groups, token_spec=shardings.moe_tokens,
+                       buf_spec=shardings.moe_buf)
     mp = lp["mlp"]
     return swiglu_mlp(h, mp["wi"], mp["wg"], mp["wo"]), None
 
 
-def block_fwd(cfg, x, lp, positions, *, q_chunk: int = 0, attn_impl: str = "auto",
-              scan_impl: str = "auto"):
+def block_fwd(cfg, x, lp, positions, shardings: ActSharding = NO_SHARDING, *,
+              q_chunk: int = 0, attn_impl: str = "auto", scan_impl: str = "auto"):
     """One decoder block. Returns (x, aux, state): the layer's MoE
     load-balance term (a float32 scalar; None without MoE, where the
     reference returns a zero: a zero and its sum per layer cost two
     launches a layer) and its decode state, {"k", "v"} for attention,
-    {"conv", "ssm"} for the SSM, both for hybrid."""
+    {"conv", "ssm"} for the SSM, both for hybrid. Under a plan the layer's
+    weights are gathered here (FSDP), again in a remat recompute."""
+    lp = _tree_map(gather_fsdp, lp)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
-        attn_out, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
+        attn_out, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
                                        attn_impl=attn_impl)
-        ssm_out, ssm_state = _ssm_branch(cfg, lp, h, scan_impl=scan_impl)
+        ssm_out, ssm_state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
         state.update(ssm_state)
         mix = _mix(cfg, lp, attn_out, ssm_out)
     elif cfg.family == "ssm":
-        mix, state = _ssm_branch(cfg, lp, h, scan_impl=scan_impl)
+        mix, state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
     else:
-        mix, state = _attn_branch(cfg, lp, h, positions, q_chunk=q_chunk,
+        mix, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
                                   attn_impl=attn_impl)
-    x = x + mix
+    x = shardings.res(x + mix)
     aux = None
     if cfg.is_moe or cfg.d_ff > 0:
-        y, aux = _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
-        x = x + y
+        y, aux = _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), shardings)
+        x = shardings.res(x + y)
     return x, aux, state
 
 
@@ -305,6 +520,7 @@ def forward_hidden(
     tokens: torch.Tensor,
     *,
     pixel_embeds: Optional[torch.Tensor] = None,
+    shardings: ActSharding = NO_SHARDING,
     compute_dtype=torch.bfloat16,
     q_chunk: int = 0,
     collect_cache: bool = False,
@@ -330,11 +546,12 @@ def forward_hidden(
     layer's products with no batch dimension as well (``_remat_context``).
     """
     context_fn = _remat_context(remat_policy)
-    x = embed_tokens(params["embed"], tokens, compute_dtype)
+    x = embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype)
     if cfg.vision_prefix and pixel_embeds is not None:
         x = torch.cat([pixel_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
+    x = shardings.res(x)
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
     impls = dict(q_chunk=q_chunk, attn_impl=attn_impl, scan_impl=scan_impl)
     wrap = remat and torch.is_grad_enabled() and not collect_cache
@@ -342,10 +559,11 @@ def forward_hidden(
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind_layers(layers, cfg.num_layers):
         if wrap:
-            x, aux = checkpoint(lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, **impls)[:2],
-                                x, lp, use_reentrant=False, context_fn=context_fn)
+            x, aux = checkpoint(
+                lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, shardings, **impls)[:2],
+                x, lp, use_reentrant=False, context_fn=context_fn)
         else:
-            x, aux, state = block_fwd(cfg, x, lp, positions, **impls)
+            x, aux, state = block_fwd(cfg, x, lp, positions, shardings, **impls)
             if collect_cache:
                 for key, t in state.items():
                     states.setdefault(key, []).append(t)
@@ -358,8 +576,8 @@ def forward_hidden(
 
 def lm_head_weight(cfg: ModelConfig, params: PyTree) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return gather_fsdp(params["embed"]).T
+    return gather_fsdp(params["lm_head"])
 
 
 def loss_fn(
@@ -367,6 +585,7 @@ def loss_fn(
     params: PyTree,
     batch: Dict[str, torch.Tensor],
     *,
+    shardings: ActSharding = NO_SHARDING,
     compute_dtype=torch.bfloat16,
     aux_weight: float = 0.01,
     q_chunk: int = 0,
@@ -385,15 +604,15 @@ def loss_fn(
     ``forward_hidden``."""
     pixels = batch.get("pixel_embeds")
     hidden, aux, _ = forward_hidden(
-        cfg, params, batch["tokens"], pixel_embeds=pixels, compute_dtype=compute_dtype,
-        q_chunk=q_chunk, remat=remat, remat_policy=remat_policy, attn_impl=attn_impl,
-        scan_impl=scan_impl,
+        cfg, params, batch["tokens"], pixel_embeds=pixels, shardings=shardings,
+        compute_dtype=compute_dtype, q_chunk=q_chunk, remat=remat, remat_policy=remat_policy,
+        attn_impl=attn_impl, scan_impl=scan_impl,
     )
     if cfg.vision_prefix and pixels is not None:
         hidden = hidden[:, cfg.vision_prefix:]
     head = lm_head_weight(cfg, params).to(compute_dtype)
     nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],
-                                           chunk=ce_chunk)
+                                           chunk=ce_chunk, logits_spec=shardings.logits)
     loss = nll_sum / torch.clamp(n_tok, min=1.0)
     total = loss + aux_weight * aux / max(cfg.num_layers, 1)
     return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
@@ -405,6 +624,7 @@ def prefill(
     tokens: torch.Tensor,
     *,
     pixel_embeds: Optional[torch.Tensor] = None,
+    shardings: ActSharding = NO_SHARDING,
     compute_dtype=torch.bfloat16,
     q_chunk: int = 1024,
     attn_impl: str = "auto",
@@ -421,11 +641,15 @@ def prefill(
     continue after the prompt, as the serving path needs.
     """
     hidden, _, cache = forward_hidden(
-        cfg, params, tokens, pixel_embeds=pixel_embeds, compute_dtype=compute_dtype,
-        q_chunk=q_chunk, collect_cache=True, attn_impl=attn_impl, scan_impl=scan_impl,
+        cfg, params, tokens, pixel_embeds=pixel_embeds, shardings=shardings,
+        compute_dtype=compute_dtype, q_chunk=q_chunk, collect_cache=True,
+        attn_impl=attn_impl, scan_impl=scan_impl,
     )
     head = lm_head_weight(cfg, params).to(compute_dtype)
     logits = (hidden[:, -1] @ head).float()
+    if shardings.kv_cache is not None and "k" in cache:
+        cache["k"] = constrain(cache["k"], shardings.kv_cache)
+        cache["v"] = constrain(cache["v"], shardings.kv_cache)
     return logits, cache
 
 
@@ -482,26 +706,87 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(torch.bfloat16)
 
 
-def _decode_attn(cfg, lp, h, cl, cur_index: int):
+def _decode_attn(cfg, lp, h, cl, cur_index: int, shardings: ActSharding = NO_SHARDING):
     """Attention for one token; writes its K/V into ``cl`` at ``cur_index``.
     With an int8 cache the new K/V are quantized first and the whole layer
-    cache is dequantized to bf16 for the attention, as the reference."""
+    cache is dequantized to bf16 for the attention, as the reference.
+    Under a plan the cache's sequence is split over ``model``
+    (``kv_cache``): each rank writes and attends its own positions, and the
+    softmax is summed over the ranks (``_cache_attention``)."""
     B = h.shape[0]
     pos = torch.full((B, 1), cur_index, dtype=torch.int32, device=h.device)
     ap = lp["attn"]
     q, k, v = _qkv(cfg, ap, h, pos)
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cl else ("k", "v")
+    if isinstance(q, DTensor):
+        b, cache = shardings.decode_residual[0], tuple(shardings.kv_cache[1:])
+        mesh = q.device_mesh
+        rows = spec(b, None, None, None)
+        fn = functools.partial(_cache_attention, cfg, cur_index=cur_index, names=names,
+                               mesh=mesh if "model" in mesh.mesh_dim_names else None,
+                               seq=cl["k"].shape[1])
+        out = on_shards(fn, (q, k, v) + tuple(cl[n] for n in names),
+                        (rows, rows, rows) + (cache, cache, cache[:-1], cache[:-1])[:len(names)],
+                        (rows,))
+    else:
+        out = _cache_attention(cfg, q, k, v, *(cl[n] for n in names), cur_index=cur_index,
+                               names=names, mesh=None, seq=cl["k"].shape[1])
+    return out.reshape(B, 1, cfg.q_dim).to(h.dtype) @ ap["wo"]
+
+
+def _cache_attention(cfg, q, k, v, *cache, cur_index: int, names, mesh, seq: int):
+    """Write the token's K/V into the layer cache (kc, vc[, k_scale,
+    v_scale]) at ``cur_index`` and attend over it. With ``mesh`` the cache
+    holds this rank's share of the ``seq`` positions (``torch.chunk``'s
+    split over ``model``): the rank holding ``cur_index`` writes, and the
+    softmax's maximum, sum and weighted values are summed over the
+    ``model`` ranks."""
+    cl = dict(zip(names, cache))
     kc, vc = cl["k"], cl["v"]
+    lo, group = 0, None
+    if mesh is not None and mesh.size(mesh.mesh_dim_names.index("model")) > 1:
+        group = mesh.get_group("model")
+        lo = mesh.get_local_rank("model") * -(-seq // group.size())
+    at = cur_index - lo
+    if 0 <= at < kc.shape[1]:
+        if "k_scale" in cl:
+            for t, c, sc in ((k, kc, cl["k_scale"]), (v, vc, cl["v_scale"])):
+                c[:, at], sc[:, at] = quantize_kv(t[:, 0])
+        else:
+            kc[:, at] = k[:, 0].to(kc.dtype)
+            vc[:, at] = v[:, 0].to(vc.dtype)
     if "k_scale" in cl:
-        for t, c, sc in ((k, kc, cl["k_scale"]), (v, vc, cl["v_scale"])):
-            c[:, cur_index], sc[:, cur_index] = quantize_kv(t[:, 0])
         kc = dequantize_kv(kc, cl["k_scale"])
         vc = dequantize_kv(vc, cl["v_scale"])
-    else:
-        kc[:, cur_index] = k[:, 0].to(kc.dtype)
-        vc[:, cur_index] = v[:, 0].to(vc.dtype)
-    out = decode_attention_xla(q.to(kc.dtype), kc, vc, cur_index,
-                               window=cfg.sliding_window)
-    return out.reshape(B, 1, cfg.q_dim).to(h.dtype) @ ap["wo"]
+    if group is None:
+        return decode_attention_xla(q.to(kc.dtype), kc, vc, cur_index,
+                                    window=cfg.sliding_window)
+    return _split_decode_attention(q.to(kc.dtype), kc, vc, cur_index, lo, group,
+                                   window=cfg.sliding_window)
+
+
+def _split_decode_attention(q, kc, vc, cur_index: int, lo: int, group, *, window: int):
+    """``decode_attention_xla`` over positions [lo, lo + S_l) of the cache on
+    each rank of ``group``: the scores' maximum over the ranks, then the
+    exponentials' sum and the weighted values summed over them."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, _, H, hd = q.shape
+    KV = kc.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    k_pos = lo + torch.arange(kc.shape[1], device=q.device)
+    ok = k_pos <= cur_index
+    if window > 0:
+        ok &= k_pos > (cur_index - window)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float() * (1.0 / hd ** 0.5)
+    scores = scores.masked_fill(~ok, float("-inf"))
+    m = funcol.wait_tensor(funcol.all_reduce(scores.amax(dim=-1, keepdim=True), "max", group))
+    p = torch.exp(scores - m)
+    den = funcol.wait_tensor(funcol.all_reduce(p.sum(dim=-1, keepdim=True), "sum", group))
+    num = torch.einsum("bkgqs,bskd->bqkgd", p.to(vc.dtype), vc).float()
+    num = funcol.wait_tensor(funcol.all_reduce(num, "sum", group))
+    den = den.permute(0, 3, 1, 2, 4)
+    return (num / den).to(vc.dtype).reshape(B, 1, H, hd)
 
 
 def _decode_ssm(cfg, lp, h, cl):
@@ -513,20 +798,22 @@ def _decode_ssm(cfg, lp, h, cl):
     return out
 
 
-def _decode_block(cfg, x, lp, cl, cur_index: int):
+def _decode_block(cfg, x, lp, cl, cur_index: int, shardings: ActSharding = NO_SHARDING):
     """x: (B,1,D); cl: this layer's cache views, written in place. Returns x."""
+    lp = _tree_map(gather_fsdp, lp)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
-        attn_out = _decode_attn(cfg, lp, h, cl, cur_index)
+        attn_out = _decode_attn(cfg, lp, h, cl, cur_index, shardings)
         mix = _mix(cfg, lp, attn_out, _decode_ssm(cfg, lp, h, cl))
     elif cfg.family == "ssm":
         mix = _decode_ssm(cfg, lp, h, cl)
     else:
-        mix = _decode_attn(cfg, lp, h, cl, cur_index)
-    x = x + mix
+        mix = _decode_attn(cfg, lp, h, cl, cur_index, shardings)
+    x = shardings.dres(x + mix)
     if cfg.is_moe or cfg.d_ff > 0:
-        # the step's B tokens are routed as one group, as in the reference
-        x = x + _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))[0]
+        # the step's B tokens are routed as the plan's groups, one without
+        x = shardings.dres(
+            x + _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), shardings)[0])
     return x
 
 
@@ -537,6 +824,7 @@ def decode_step(
     tokens: torch.Tensor,
     cur_index: int,
     *,
+    shardings: ActSharding = NO_SHARDING,
     compute_dtype=torch.bfloat16,
 ):
     """One token for every sequence. tokens: (B, 1) -> (logits (B,V), cache).
@@ -545,11 +833,11 @@ def decode_step(
     K/V and SSM state into ``cache`` in place and returns it: the cache is
     the largest decode buffer and a copy per step would double it.
     """
-    x = embed_tokens(params["embed"], tokens, compute_dtype)
+    x = shardings.dres(embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype))
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
     for i in range(cfg.num_layers):
         cl = {k: c[i] for k, c in cache.items()}
-        x = _decode_block(cfg, x, _layer(layers, i), cl, int(cur_index))
+        x = _decode_block(cfg, x, _layer(layers, i), cl, int(cur_index), shardings)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = lm_head_weight(cfg, params).to(compute_dtype)
     logits = (x @ head)[:, 0].float()

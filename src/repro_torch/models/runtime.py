@@ -1,35 +1,102 @@
-"""Step builders: the bridge between model code and the trainer and server.
+"""Step builders and the distribution plan: the bridge between model code
+and the trainer, the server and the dry run.
 
-Port of the step builders of ``repro.models.runtime`` (``make_train_step``
-:242, ``make_prefill_step`` :265, ``make_decode_step`` :279) for one device.
-``CellPlan`` keeps what a step on one device needs: the reference's plan
-also carries sharding rules and activation PartitionSpecs, which wait for
-the distributed slice (ROADMAP, Queue 1). The steps run eagerly; there is
-no ``jit`` to build.
+Port of ``repro.models.runtime``: the sharding rules (``train_rules``,
+``train_rules_v2``, ``decode_rules``), ``CellPlan`` and ``plan_cell``, the
+abstract input and state trees, and the step builders. The plan is the
+reference's, re-grounded on DTensor: a spec names mesh axes per tensor dim
+as a ``PartitionSpec`` does, and over a ``DeviceMesh`` with the axes
+``(pod,) data, model`` it becomes DTensor placements
+(``layers.placements``). The steps run eagerly on whatever the state holds:
+plain tensors on one device, or DTensors under a plan, whose ops DTensor
+partitions and whose constraint points (``ActSharding``) redistribute;
+there is no ``jit`` to build.
+
+``trace_cell`` is the dry run's counterpart of the reference's
+``lower_cell``: nothing is lowered; it runs the cell's real step once on
+fake-tensor DTensors (``FakeTensorMode``, nothing allocated) over a mesh
+whose process group may be the ``fake`` backend, under the caller's
+dispatch modes, which count what runs. The kernels behind ctypes cannot
+take a fake tensor: the dry run runs the plain attention (``attn_impl=
+"plain"``), as the reference's dry run lowers ``attention_xla``, and for
+the scan its outline on fake shards (``ssm._scan_outline``: a sequential
+recurrence of S steps on values that do not exist would only cost time);
+``layers.counted_kernel`` counts both by the kernels' formulas.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+import contextlib
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import model as M
+from repro_torch.models.layers import Spec, batch_axes_for, placements, spec
 from repro_torch.optim import adamw
 
 PyTree = Any
 
 
+# --------------------------------------------------------------------------- #
+# Sharding rules (logical axis -> mesh axis)
+# --------------------------------------------------------------------------- #
+def train_rules(fsdp_axis: Any = "data", tensor_axis: str = "model") -> Dict:
+    """FSDP on the data axis + tensor/expert parallel on the model axis."""
+    return {
+        "vocab": tensor_axis,
+        "residual": fsdp_axis,
+        "heads": tensor_axis,
+        "kv": tensor_axis,
+        "ffn": tensor_axis,
+        "experts": tensor_axis,
+        "expert_ffn": tensor_axis,  # fallback when E doesn't divide (mixtral)
+        "dinner": tensor_axis,
+        "layers": None,
+        None: None,
+    }
+
+
+def train_rules_v2() -> Dict:
+    """FSDP over output dims only: contraction dims unsharded, output dims
+    over ("data", "model"), so a product all-gathers the weight shard and
+    the weight gradients reduce-scatter (ZeRO). Per-device weight memory is
+    that of ``train_rules``."""
+    return {
+        "vocab": ("data", "model"),
+        "residual": None,
+        "heads": ("data", "model"),
+        "kv": ("data", "model"),
+        "ffn": ("data", "model"),
+        "experts": "model",
+        "expert_ffn": "data",
+        "dinner": ("data", "model"),
+        "layers": None,
+        None: None,
+    }
+
+
+def decode_rules(fsdp_axis: Any = "data", tensor_axis: str = "model") -> Dict:
+    """Inference keeps the same 2-D weight layout (the reference's baseline)."""
+    return train_rules(fsdp_axis, tensor_axis)
+
+
 @dataclass(frozen=True)
 class CellPlan:
-    """One (arch x shape) cell on one device. ``compute_dtype`` is the
+    """One (arch x shape x mesh) cell. ``compute_dtype`` is the
     reference's ``loss_fn`` default, bf16; ``attn_impl="plain"`` and
     ``scan_impl="plain"`` run the plain attention and scan math on the
     card, the on-card reference of the kernels. ``remat_policy`` (None or
     "dots") and ``kv_dtype`` (None for the compute type, or ``torch.int8``
-    for the quantized KV cache) are the reference's fields."""
+    for the quantized KV cache) are the reference's fields, and so are the
+    sharding ones: ``batch_axes`` (the mesh axes the batch splits over),
+    ``rules`` (logical axis -> mesh axes) and ``act`` (the activation
+    specs). Their defaults are one device's: no axes, no rules,
+    ``NO_SHARDING``."""
 
     cfg: ModelConfig
     shape: ShapeCell
@@ -41,6 +108,200 @@ class CellPlan:
     scan_impl: str = "auto"
     remat_policy: Optional[str] = None
     kv_dtype: Optional[torch.dtype] = None
+    batch_axes: Optional[Tuple[str, ...]] = None
+    rules: Dict = field(default_factory=dict)
+    act: M.ActSharding = M.NO_SHARDING
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def plan_cell(
+    cfg: ModelConfig,
+    shape: ShapeCell,
+    mesh,
+    *,
+    overrides: Optional[Dict] = None,
+) -> CellPlan:
+    """The reference's baseline plan for a cell: batch over the largest
+    prefix of ("pod", "data") that divides it, the sequence of train and
+    prefill activations over ``model``, the train or decode rules, the
+    reference's ``q_chunk`` and ``ce_chunk`` defaults. ``overrides`` feed
+    the reference's hill-climbs: ``seq_axis``, ``rules``, ``act``,
+    ``remat_policy``, ``q_chunk``, ``ce_chunk``, ``kv_dtype`` and
+    ``moe_impl="a2a"`` (``moe_ffn_a2a`` where the experts split over
+    ``model``); the port's own ``attn_impl``/``scan_impl`` too."""
+    overrides = overrides or {}
+    sizes = mesh_axis_sizes(mesh)
+    baxes = batch_axes_for(shape.global_batch, sizes)
+    seq_axis = overrides.get("seq_axis", "model")
+    rules = overrides.get("rules") or (
+        train_rules() if shape.kind == "train" else decode_rules()
+    )
+    groups = 1
+    if baxes is not None:
+        for a in baxes:
+            groups *= sizes[a]
+    moe_a2a = None
+    if overrides.get("moe_impl") == "a2a" and cfg.num_experts % sizes.get("model", 1) == 0:
+        moe_a2a = dict(
+            mesh=mesh, batch_axes=baxes, model_axis="model",
+            seq_axis=seq_axis if shape.kind in ("train", "prefill") else None,
+        )
+    if shape.kind in ("train", "prefill"):
+        act = M.ActSharding(
+            residual=spec(baxes, seq_axis, None),
+            logits=spec(baxes, None, "model"),
+            moe_tokens=spec(baxes, None, None),
+            moe_buf=spec(baxes, "model", None, None),
+            moe_groups=groups,
+            moe_a2a=moe_a2a,
+            kv_cache=spec(None, baxes, seq_axis, None, None),
+        )
+    else:  # decode
+        act = M.ActSharding(
+            decode_residual=spec(baxes, None, None),
+            moe_tokens=spec(baxes, None, None),
+            moe_buf=spec(baxes, "model", None, None),
+            moe_groups=groups,
+            kv_cache=spec(None, baxes, "model", None, None),
+        )
+    act = overrides.get("act", act)
+    default_qc = 1024 if shape.seq_len >= 4096 else 0
+    if shape.kind == "train" and cfg.d_model >= 7168:
+        default_qc = 512  # bound f32 score transients for the widest models
+    return CellPlan(
+        cfg, shape,
+        q_chunk=overrides.get("q_chunk", default_qc),
+        ce_chunk=overrides.get("ce_chunk", 512),
+        remat_policy=overrides.get("remat_policy"),
+        kv_dtype=overrides.get("kv_dtype"),
+        attn_impl=overrides.get("attn_impl", "auto"),
+        scan_impl=overrides.get("scan_impl", "auto"),
+        batch_axes=baxes, rules=rules, act=act,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Abstract inputs and state (DTensors over the mesh; fake under FakeTensorMode)
+# --------------------------------------------------------------------------- #
+def _dt(shape, dtype, mesh, s: Spec, device) -> DTensor:
+    """A DTensor of ``shape`` on the spec ``s``: each rank's shard of a
+    zero tensor, cut locally (no exchange). Under ``FakeTensorMode`` nothing
+    is allocated."""
+    full = torch.zeros(shape, dtype=dtype, device=device)
+    return distribute_tensor(full, mesh, placements(tuple(s) + (None,) * (len(shape) - len(s)),
+                                                   mesh), src_data_rank=None)
+
+
+def _device(mesh) -> str:
+    return mesh.device_type
+
+
+def input_specs(plan: CellPlan, mesh) -> Dict[str, Any]:
+    """DTensor stand-ins for every model input of this cell (zeros): tokens,
+    labels, mask and a vlm config's pixel_embeds for train and prefill;
+    tokens (B, 1) and ``cur_index`` (a Python int, the reference's replicated
+    scalar) for decode."""
+    cfg, shape = plan.cfg, plan.shape
+    B, dev = shape.global_batch, _device(mesh)
+    b = spec(plan.batch_axes, None)
+    if shape.kind in ("train", "prefill"):
+        S = shape.seq_len
+        text = S - cfg.vision_prefix if cfg.vision_prefix else S
+        specs = {"tokens": _dt((B, text), torch.long, mesh, b, dev)}
+        if cfg.vision_prefix:
+            specs["pixel_embeds"] = _dt((B, cfg.vision_prefix, cfg.d_model), torch.bfloat16,
+                                        mesh, b, dev)
+        if shape.kind == "train":
+            specs["labels"] = _dt((B, text), torch.long, mesh, b, dev)
+            specs["mask"] = _dt((B, text), torch.float32, mesh, b, dev)
+        return specs
+    return {"tokens": _dt((B, 1), torch.long, mesh, b, dev), "cur_index": 0}
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, tree[k], specs[k]) for k in tree}
+    return fn(tree, specs)
+
+
+def abstract_sharded_params(plan: CellPlan, mesh, dtype=torch.float32) -> PyTree:
+    """The params as DTensors on ``param_partition_specs`` of the plan's
+    rules."""
+    specs = M.param_partition_specs(plan.cfg, plan.rules, mesh_axis_sizes(mesh))
+    dev = _device(mesh)
+    return _map_specs(lambda p, s: _dt(p.shape, dtype, mesh, s, dev),
+                      M.abstract_params(plan.cfg, dtype), specs)
+
+
+def abstract_train_state(plan: CellPlan, mesh) -> Dict[str, PyTree]:
+    """float32 params and AdamW moments sharded alike (ZeRO), a replicated
+    int32 count."""
+    params = abstract_sharded_params(plan, mesh, torch.float32)
+    moments = [_tree_like(params) for _ in range(2)]
+    count = _dt((), torch.int32, mesh, (), _device(mesh))
+    return {"params": params, "opt": {"m": moments[0], "v": moments[1], "count": count}}
+
+
+def _tree_like(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_like(v) for k, v in tree.items()}
+    return torch.zeros_like(tree, dtype=torch.float32)
+
+
+def cache_partition_specs(plan: CellPlan) -> Dict[str, Spec]:
+    cfg = plan.cfg
+    specs: Dict[str, Spec] = {}
+    if cfg.has_attention:
+        kv = spec(None, plan.batch_axes, "model", None, None)  # seq over model
+        specs["k"] = kv
+        specs["v"] = kv
+        if plan.kv_dtype is not None and plan.kv_dtype != torch.bfloat16:
+            sc = spec(None, plan.batch_axes, "model", None)
+            specs["k_scale"] = sc
+            specs["v_scale"] = sc
+    if cfg.has_ssm:
+        specs["conv"] = spec(None, plan.batch_axes, None, "model")
+        specs["ssm"] = spec(None, plan.batch_axes, "model", None)
+    return specs
+
+
+def abstract_sharded_cache(plan: CellPlan, mesh) -> PyTree:
+    """The cell's decode cache (``plan.kv_dtype`` or bf16) as DTensors on
+    ``cache_partition_specs``."""
+    cache = M.make_decode_cache(plan.cfg, plan.shape.global_batch, plan.shape.seq_len,
+                                plan.kv_dtype or torch.bfloat16, device="meta")
+    specs = cache_partition_specs(plan)
+    dev = _device(mesh)
+    return {k: _dt(t.shape, t.dtype, mesh, specs[k], dev) for k, t in cache.items()}
+
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """Plain tensors (every rank holding the whole) -> DTensors on
+    ``specs``, each rank keeping its shard."""
+    return _map_specs(lambda t, s: distribute_tensor(
+        t, mesh, placements(tuple(s) + (None,) * (t.dim() - len(s)), mesh),
+        src_data_rank=None), tree, specs)
+
+
+def shard_state(plan: CellPlan, mesh, state: Dict[str, PyTree]) -> Dict[str, PyTree]:
+    """A one-device train state -> the plan's DTensor state."""
+    specs = M.param_partition_specs(plan.cfg, plan.rules, mesh_axis_sizes(mesh))
+    opt = state["opt"]
+    return {"params": shard_tree(state["params"], specs, mesh),
+            "opt": {"m": shard_tree(opt["m"], specs, mesh),
+                    "v": shard_tree(opt["v"], specs, mesh),
+                    "count": shard_tree(opt["count"], (), mesh)}}
+
+
+def shard_batch(plan: CellPlan, mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A train batch (numpy or tensors) -> DTensors on the mesh's device,
+    split over the plan's batch axes."""
+    b = batch_to_device(batch, _device(mesh))
+    return {k: shard_tree(t, spec(plan.batch_axes, None), mesh) for k, t in b.items()}
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -72,12 +333,20 @@ def _unflatten(pairs):
     return tree
 
 
-def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
-    """``train_step(state, batch) -> ({"params", "opt"}, metrics)``: the
-    gradient of ``loss_fn`` over the params by ``torch.autograd.grad``,
-    then ``adamw_update``. The state's tensors are read, never written; the
-    new state is made of new tensors. ``metrics`` are Python floats: loss,
-    aux_loss, tokens, lr and grad_norm."""
+def _sharded(tree) -> contextlib.AbstractContextManager:
+    """DTensor's implicit replication (plain tensors such as positions and
+    masks taken as replicated) when the step's state holds DTensors; else
+    nothing, so a one-device step runs as it did without a plan."""
+    if any(isinstance(t, DTensor) for _, t in _leaves(tree)):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
+    """``make_train_step``'s step with its metrics left as tensors (the dry
+    run traces it on fake tensors, which have no values)."""
     cfg = plan.cfg
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
@@ -86,18 +355,40 @@ def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
         b = batch_to_device(batch, dev)
         ps = [t.detach().requires_grad_(True) for _, t in leaves]
         params = _unflatten([(path, t) for (path, _), t in zip(leaves, ps)])
-        with torch.enable_grad():
+        with torch.enable_grad(), _sharded(state["params"]):
             total, metrics = M.loss_fn(
-                cfg, params, b, compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk,
-                ce_chunk=plan.ce_chunk, remat=plan.remat, remat_policy=plan.remat_policy,
-                attn_impl=plan.attn_impl, scan_impl=plan.scan_impl)
+                cfg, params, b, shardings=plan.act, compute_dtype=plan.compute_dtype,
+                q_chunk=plan.q_chunk, ce_chunk=plan.ce_chunk, remat=plan.remat,
+                remat_policy=plan.remat_policy, attn_impl=plan.attn_impl,
+                scan_impl=plan.scan_impl)
             grads = torch.autograd.grad(total, ps)
         del params, ps, total
-        grads = _unflatten([(path, g) for (path, _), g in zip(leaves, grads)])
-        new_params, new_opt, opt_metrics = adamw.adamw_update(
-            opt_cfg, state["params"], grads, state["opt"])
-        metrics = {k: float(v.detach()) for k, v in dict(metrics, **opt_metrics).items()}
-        return {"params": new_params, "opt": new_opt}, metrics
+        # under a plan each gradient takes its param's placement (the
+        # reduce-scatter of FSDP), so the update stays on each shard
+        grads = _unflatten([(path, g.redistribute(t.device_mesh, t.placements)
+                             if isinstance(g, DTensor) else g)
+                            for ((path, t), g) in zip(leaves, grads)])
+        with _sharded(state["params"]):
+            new_params, new_opt, opt_metrics = adamw.adamw_update(
+                opt_cfg, state["params"], grads, state["opt"])
+        return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
+
+    return train_step
+
+
+def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
+    """``train_step(state, batch) -> ({"params", "opt"}, metrics)``: the
+    gradient of ``loss_fn`` over the params by ``torch.autograd.grad``,
+    then ``adamw_update``. The state's tensors are read, never written; the
+    new state is made of new tensors. ``metrics`` are Python floats: loss,
+    aux_loss, tokens, lr and grad_norm. Under a plan the state and batch
+    are DTensors (``shard_state``, ``shard_batch``) and the loss runs on
+    the plan's ``act``."""
+    step = train_step_tensors(plan, opt_cfg)
+
+    def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
+        new, metrics = step(state, batch)
+        return new, {k: float(v.detach()) for k, v in metrics.items()}
 
     return train_step
 
@@ -106,10 +397,11 @@ def make_prefill_step(plan: CellPlan):
     cfg = plan.cfg
 
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):
-        return M.prefill(cfg, params, batch["tokens"],
-                         pixel_embeds=batch.get("pixel_embeds"),
-                         compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk or 1024,
-                         attn_impl=plan.attn_impl, scan_impl=plan.scan_impl)
+        with _sharded(params):
+            return M.prefill(cfg, params, batch["tokens"],
+                             pixel_embeds=batch.get("pixel_embeds"), shardings=plan.act,
+                             compute_dtype=plan.compute_dtype, q_chunk=plan.q_chunk or 1024,
+                             attn_impl=plan.attn_impl, scan_impl=plan.scan_impl)
 
     return prefill_step
 
@@ -126,7 +418,70 @@ def make_decode_step(plan: CellPlan):
     cfg = plan.cfg
 
     def dstep(params: PyTree, cache: PyTree, batch: Dict[str, Any]):
-        return M.decode_step(cfg, params, cache, batch["tokens"], int(batch["cur_index"]),
-                             compute_dtype=plan.compute_dtype)
+        with _sharded(params):
+            return M.decode_step(cfg, params, cache, batch["tokens"], int(batch["cur_index"]),
+                                 shardings=plan.act, compute_dtype=plan.compute_dtype)
 
     return dstep
+
+
+def trace_cell(plan: CellPlan, mesh, *, opt_cfg: Optional[adamw.AdamWConfig] = None,
+               modes: Sequence[contextlib.AbstractContextManager] = ()) -> Dict[str, Any]:
+    """Run the cell's real step once over ``mesh`` on the abstract inputs and
+    state under ``FakeTensorMode``, with ``modes`` (e.g.
+    ``launch.cost_analysis.CostMode``) entered around the step only; a mode
+    with a ``track`` method is handed the step's arguments once entered (a
+    memory tracker counts them live). Returns {"args": the step's
+    arguments, "out": what it returned}: a train step takes (state, batch)
+    with float32 params and moments, prefill (bf16 params, batch), decode
+    (bf16 params, cache, batch), as the reference's ``lower_cell``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    # the kernels behind ctypes take no fake tensor
+    plan = dataclasses.replace(plan, attn_impl="plain", scan_impl="plain")
+    kind = plan.shape.kind
+    with FakeTensorMode(allow_non_fake_inputs=True), _fake_safe_strided_shards():
+        if kind == "train":
+            args = (abstract_train_state(plan, mesh), input_specs(plan, mesh))
+            fn = train_step_tensors(plan, opt_cfg)
+        elif kind == "prefill":
+            args = (abstract_sharded_params(plan, mesh, torch.bfloat16), input_specs(plan, mesh))
+            fn = make_prefill_step(plan)
+        else:
+            args = (abstract_sharded_params(plan, mesh, torch.bfloat16),
+                    abstract_sharded_cache(plan, mesh), input_specs(plan, mesh))
+            fn = make_decode_step(plan)
+        with contextlib.ExitStack() as stack:
+            for m in modes:
+                stack.enter_context(m)
+                if hasattr(m, "track"):
+                    m.track(args)
+            out = fn(*args)
+    return {"args": args, "out": out}
+
+
+@contextlib.contextmanager
+def _fake_safe_strided_shards():
+    """DTensor's ``_StridedShard`` (a flattened dim split over two mesh axes)
+    computes its shard offsets from a tensor it makes on the spot, which
+    ``FakeTensorMode`` would make fake and unreadable: compute them outside
+    the mode."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import placement_types
+
+    cls = getattr(placement_types, "_StridedShard", None)
+    orig = cls.__dict__.get("local_shard_size_and_offset") if cls is not None else None
+    if orig is None:       # this torch computes no offsets from a tensor
+        yield
+        return
+
+    def outside(*args, **kwargs):
+        with unset_fake_temporarily():
+            return orig(*args, **kwargs)
+
+    cls.local_shard_size_and_offset = outside
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = orig

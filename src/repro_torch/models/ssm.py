@@ -19,9 +19,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+from repro_torch.models.layers import counted_kernel, on_shards, scan_flops, spec
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -78,6 +80,38 @@ def selective_scan(
     return scan_ops.selective_scan(x, dt, B_, C, A, D, h0=h0)
 
 
+def _scan_outline(x, dt, B_, C, A, D):
+    """The scan's outputs, (y (B, S, Di) in x's type, h_last (B, Di, N)
+    float32), as elementwise products of its inputs, each input reaching
+    both: what a trace on fake tensors (the dry run, which has no values)
+    needs of the scan, its shapes, types and autograd graph, without a
+    Python loop over S steps. Its work is counted by the kernels' formula
+    (``layers.counted_kernel``)."""
+    first = (dt[:, :1] + B_.sum(-1, keepdim=True)[:, :1] + C.sum(-1, keepdim=True)[:, :1])
+    y = x * (D + A.sum(-1)) + first.to(x.dtype)
+    h = (x[:, -1, :, None].float() * A) * dt[:, -1, :, None].float()
+    return y.to(x.dtype), h
+
+
+def sharded_scan(x, dt, B_, C, A, D, *, impl: str = "auto", specs):
+    """``selective_scan`` on each rank's shards (``on_shards``): batch on
+    the plan's batch axes and the Di channels, which the scan keeps apart,
+    on ``model`` when it divides them; S and N whole. ``specs`` is
+    ``model._kernel_specs``'s. On fake tensors (the dry run) the shards
+    take ``_scan_outline``."""
+    sx, m = specs((x.shape[-1],))
+    sbc = spec(sx[0], None, None)
+
+    def fn(x, dt, B_, C, A, D):
+        if is_fake(x):
+            return _scan_outline(x, dt, B_, C, A, D)
+        return selective_scan(x, dt, B_, C, A, D, impl=impl)
+
+    return on_shards(counted_kernel("ssm_scan", fn, scan_flops), (x, dt, B_, C, A, D),
+                     (sx, sx, sbc, sbc, spec(m, None), spec(m)),
+                     (sx, spec(sx[0], m, None)))
+
+
 def mamba_block(
     x: torch.Tensor,
     p: Dict[str, torch.Tensor],
@@ -86,20 +120,22 @@ def mamba_block(
     ssm_state: int,
     impl: str = "auto",
     return_state: bool = False,
+    scan=None,
 ):
     """Full mamba-1 mixer. x: (B, S, D) -> (B, S, D).
 
     With ``return_state`` also returns the decode state after the last
     position, as ``(y, (conv, ssm))``: ``conv`` (B, K-1, Di) is the last K-1
     positions of the conv input (zeros before the first), ``ssm`` (B, Di, N)
-    the scan's last state; both in the layout of a decode cache layer."""
+    the scan's last state; both in the layout of a decode cache layer.
+    ``scan`` replaces ``selective_scan`` (a plan's ``sharded_scan``)."""
     xz = x @ p["in_proj"]
     xi, z = xz.chunk(2, dim=-1)  # (B,S,Di) each
     conv_in = xi
     xi = _silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
     dt, B_, C = _ssm_params(xi, p, dt_rank, ssm_state)
     A = -torch.exp(p["A_log"].float())
-    y, h_last = selective_scan(xi, dt, B_, C, A, p["D"].float(), impl=impl)
+    y, h_last = (scan or selective_scan)(xi, dt, B_, C, A, p["D"].float(), impl=impl)
     y = y * _silu(z)  # gate
     out = y @ p["out_proj"]
     if not return_state:

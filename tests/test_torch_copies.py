@@ -4,7 +4,9 @@ import boundary.
 * Every copied module is the original text with ``repro.`` imports
   rewritten to ``repro_torch.``; ``core/client.py`` differs in one more
   hunk, which replaces the per-byte coverage loop of ``Transaction.commit``
-  with an interval union.
+  with an interval union, and ``core/cluster.py`` in the two module names
+  ``ClusterHarness`` starts its processes by, so that the port's harness
+  runs the port's server and coordinator.
 * No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax`` or
   ``repro``.
 * The interval union covers exactly what the per-byte loop covers: random
@@ -35,7 +37,8 @@ COPIED = (
     [f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))]
     + [f"core/{m}.py" for m in ("__init__", "types", "api", "blockstore", "obs", "backend",
                                  "client", "posix", "runtime", "arena", "tensorstate",
-                                 "wire", "wal", "leases", "sharded", "remote", "server")]
+                                 "wire", "wal", "leases", "sharded", "remote", "server",
+                                 "retry", "nfs_baseline", "cluster")]
     + ["serving/engine.py", "serving/kvcache.py", "data/pipeline.py", "train/elastic.py"]
 )
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
@@ -51,6 +54,13 @@ def test_copy_is_the_original_with_imports_rewritten(module):
     got = (PORT / module).read_text().splitlines()
     hunks = [op for op in difflib.SequenceMatcher(a=want, b=got, autojunk=False).get_opcodes()
              if op[0] != "equal"]
+    if module == "core/cluster.py":
+        # the harness's module names (``_shard_argv``, ``_coord_argv``)
+        changed = [(want[i1:i2], got[j1:j2]) for _, i1, i2, j1, j2 in hunks]
+        assert changed == [([f'            "repro.core.{m}",'],
+                             [f'            "repro_torch.core.{m}",'])
+                            for m in ("server", "cluster")], changed
+        return
     if module != "core/client.py":
         assert hunks == [], module
         return
@@ -61,6 +71,37 @@ def test_copy_is_the_original_with_imports_rewritten(module):
     added = "\n".join(got[j1:j2])
     assert "for i in range(off, min(off + len(data), self.block_size)):" in removed
     assert "bytearray" not in added and "sorted(" in added
+
+
+def test_cluster_harness_runs_the_port_modules(tmp_path):
+    """The port's ``ClusterHarness`` starts ``repro_torch.core.server`` shard
+    processes and a ``repro_torch.core.cluster`` coordinator, which answer
+    a transaction."""
+    from test_torch_kvcache import start_harness
+
+    from repro_torch.core.cluster import ClusterHarness
+
+    h = ClusterHarness(str(tmp_path / "cluster"), n_servers=2, n_slots=4)
+    try:
+        start_harness(h)
+        argvs = [p.args for p in h.shard_procs] + [h.coord_proc.args]
+        modules = [argv[argv.index("-m") + 1] for argv in argvs]
+        assert modules == ["repro_torch.core.server"] * 2 + ["repro_torch.core.cluster"]
+        for p in h.shard_procs + [h.coord_proc]:
+            cmdline = Path(f"/proc/{p.pid}/cmdline").read_bytes().split(b"\0")
+            assert p.poll() is None and cmdline[cmdline.index(b"-m") + 1] == \
+                modules[0 if p is not h.coord_proc else 2].encode()
+        client = h.client()
+        try:
+            local = LocalServer(client)
+            FunctionRuntime(local).invoke(
+                lambda fs: fs.close(fs.open("/mnt/tsfs/harness", O_CREAT)))
+            assert "harness" in FunctionRuntime(LocalServer(client)).invoke(
+                lambda fs: fs.readdir("/mnt/tsfs"))
+        finally:
+            client.close()
+    finally:
+        h.stop()
 
 
 def _py_files():

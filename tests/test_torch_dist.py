@@ -1,0 +1,184 @@
+"""The plan on one device, and the dry-run tooling end to end on the CPU.
+
+* A reduced qwen2-1.5b train step through ``plan_cell`` on a 1 x 1 gloo
+  mesh (DTensor state and batch, the plan's constraint points, the
+  attention on its shards, the FSDP gathers) gives the unsharded step's
+  loss and grad norm in float32 to 1e-5 relative, and its new params to
+  1e-6 wherever the gradient is above 1e-3 of its leaf's largest: the
+  bounds of ``test_torch_train.py``'s float32 step (not bit for bit:
+  DTensor reshapes the products and sums the bias gradients in another
+  order, and AdamW's first step is +-lr where a gradient is at rounding
+  level). Each new param keeps its placement.
+* ``python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
+  --mesh pod`` traces the FULL config on a fake world of 256 and writes an
+  OK record, which ``roofline`` and ``perf`` render; ``launch.train
+  --full`` prints its line.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ShapeCell, get_config, reduced_config
+from repro_torch.data.pipeline import DataConfig, synth_batch
+from repro_torch.launch import perf, roofline
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as M
+from repro_torch.models import runtime as R
+from repro_torch.optim import adamw
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 600
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], prefix + (key,)).items()}
+    return {prefix: tree}
+
+
+def _grads(cfg, params, batch):
+    leaves = _flat(params)
+    ps = {k: t.detach().requires_grad_(True) for k, t in leaves.items()}
+    tree = {}
+    for path, t in ps.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t
+    total, _ = M.loss_fn(cfg, tree, R.batch_to_device(batch, "cpu"),
+                         compute_dtype=torch.float32, ce_chunk=16)
+    return dict(zip(ps, torch.autograd.grad(total, list(ps.values()))))
+
+
+def test_plan_on_one_device_changes_nothing():
+    cfg = reduced_config(get_config("qwen2-1.5b"))
+    shape = ShapeCell("t", "train", 32, 2)
+    opt = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=0, decay_steps=10)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    base = R.CellPlan(cfg, shape, ce_chunk=16, compute_dtype=torch.float32)
+    want, wm = R.make_train_step(base, opt)(state, batch)
+    mesh = make_host_mesh("cpu")
+    try:
+        plan = dataclasses.replace(R.plan_cell(cfg, shape, mesh), ce_chunk=16,
+                                   compute_dtype=torch.float32)
+        assert plan.batch_axes == ("data",) and plan.act.residual == ("data", "model", None)
+        state_d = R.shard_state(plan, mesh, state)
+        got, gm = R.make_train_step(plan, opt)(state_d, R.shard_batch(plan, mesh, batch))
+        assert gm["loss"] == pytest.approx(wm["loss"], rel=1e-5)
+        assert gm["grad_norm"] == pytest.approx(wm["grad_norm"], rel=1e-5)
+        grads = _grads(cfg, params, batch)
+        for path, t in _flat(got["params"]).items():
+            assert tuple(t.placements) == tuple(_flat(state_d["params"])[path].placements)
+            g = grads[path].abs()
+            big = g > 1e-3 * g.max()
+            assert torch.allclose(t.full_tensor()[big], _flat(want["params"])[path][big],
+                                  rtol=0, atol=1e-6), path
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(*args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=TIMEOUT_S)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return res.stdout
+
+
+def test_dryrun_full_config_roofline_and_perf(tmp_path):
+    out = _run("repro_torch.launch.dryrun", "--arch", "qwen2-1.5b", "--shape", "train_4k",
+               "--mesh", "pod", "--out", str(tmp_path))
+    assert "[OK  ] qwen2-1.5b" in out and "done: 1 ok, 0 skip, 0 fail / 1" in out
+    rec = json.loads((tmp_path / "qwen2-1.5b__train_4k__pod.json").read_text())
+    assert rec["ok"] and rec["devices"] == 256 and rec["mesh_shape"] == [16, 16]
+    a = rec["analysis"]
+    assert a["flops_per_device"] > 0 and a["collective_bytes_per_device"] > 0
+    assert a["kernels"]["flash_attention"]["calls"] == 2 * 28   # forward + remat recompute
+    assert rec["memory"]["peak_bytes_est"] > rec["memory"]["argument_bytes"] > 0
+    table = roofline.markdown("pod", root=str(tmp_path))
+    assert "| qwen2-1.5b | train_4k |" in table and "FAIL" not in table
+    text = perf.report(perf.load_cell("qwen2-1.5b__train_4k__pod", tmp_path), top=5,
+                       fuse_min_elems=1 << 24)
+    assert "HBM bytes by scope" in text and "collective wire bytes" in text
+    assert "what-if fuse" in text
+
+
+def test_train_full_prints_its_line():
+    out = _run("repro_torch.launch.train", "--arch", "qwen2-1.5b", "--full")
+    assert "per device:" in out
+    assert out.strip().endswith("full config traced; attach real devices to execute")
+
+
+DECODE_STEPS = 10
+
+
+def _decode_rank(rank: int, store: str, out) -> None:
+    from repro_torch.models.runtime import make_decode_step, plan_cell
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=4)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        cfg = reduced_config(get_config("qwen2-1.5b"))
+        shape = ShapeCell("d", "decode", 16, 4)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (4, DECODE_STEPS),
+                               generator=torch.Generator().manual_seed(1))
+        plan = dataclasses.replace(plan_cell(cfg, shape, mesh), compute_dtype=torch.float32)
+        one = dataclasses.replace(plan, batch_axes=None, act=M.NO_SHARDING)
+        cache = R.make_decode_cache(one, "cpu")
+        cache_d = R.shard_tree(R.make_decode_cache(one, "cpu"), R.cache_partition_specs(plan),
+                               mesh)
+        specs = M.param_partition_specs(cfg, plan.rules, R.mesh_axis_sizes(mesh))
+        params_d = R.shard_tree(params, specs, mesh)
+        step, step_d = make_decode_step(one), make_decode_step(plan)
+        worst = 0.0
+        for i in range(DECODE_STEPS):
+            tok = tokens[:, i:i + 1]
+            want, cache = step(params, cache, {"tokens": tok, "cur_index": i})
+            got, cache_d = step_d(params_d, cache_d, {"tokens": R.shard_tree(
+                tok, (plan.batch_axes, None), mesh), "cur_index": i})
+            worst = max(worst, float((got.full_tensor() - want).abs().max()))
+        same_cache = all(torch.allclose(cache_d[k].full_tensor(), cache[k], atol=1e-5)
+                         for k in cache)
+        out.put((rank, worst, same_cache))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_planned_decode_on_a_gloo_mesh_matches_one_device(tmp_path):
+    """Ten float32 decode steps of the reduced qwen2-1.5b on a 2 x 2 gloo
+    mesh (batch over ``data``, the cache's 16 positions over ``model``:
+    positions 8-15 live on the second ``model`` rank, which the eighth step
+    reaches) give the one-device logits within 1e-4 and write the same
+    cache."""
+    import multiprocessing
+
+    store = str(tmp_path / "store")     # a file rendezvous: no port to race for
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_decode_rank, args=(r, store, out)) for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        results = [out.get(timeout=TIMEOUT_S) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    for rank, worst, same_cache in results:
+        assert worst <= 1e-4 and same_cache, (rank, worst, same_cache)

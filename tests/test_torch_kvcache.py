@@ -4,10 +4,11 @@ allocation, assembly, persistence, prefix reuse.
 
 The reference's persistence test runs over its ``backend_factory`` kinds;
 here over the port's: the monolithic ``BackendService``, ``ShardedBackend``
-(2 and 4 shards) and the networked ``RemoteBackend`` speaking the wire
+(2 and 4 shards), the networked ``RemoteBackend`` speaking the wire
 protocol to an in-process ``BackendServer`` with a WAL, in front of one
-backend or of 2 shards. The reference's sixth kind, shard server processes
-behind a coordinator (``core/cluster.py``), is not copied yet (ROADMAP).
+backend or of 2 shards, and the reference's sixth kind, ``sharded-proc``:
+two shard server processes behind a coordinator process, started by the
+port's ``ClusterHarness`` (``core/cluster.py``).
 """
 import numpy as np
 import pytest
@@ -18,7 +19,37 @@ from repro_torch.core.client import LocalServer
 from repro_torch.core.sharded import ShardedBackend
 from repro_torch.serving.kvcache import PagedKVCache
 
-KINDS = ("mono", "sharded2", "sharded4", "remote-mono", "remote-sharded2")
+KINDS = ("mono", "sharded2", "sharded4", "remote-mono", "remote-sharded2", "sharded-proc")
+HARNESS_TIMEOUT_S = 60.0   # a harness process's start and a client's connect
+
+
+def start_harness(h, timeout_s: float = HARNESS_TIMEOUT_S):
+    """``h.start()`` within ``timeout_s``: the harness reads each process's
+    port from its first line and would wait for it forever; past the
+    timeout its processes are killed, which ends the wait, and the test
+    fails."""
+    import threading
+
+    errors = []
+
+    def run():
+        try:
+            h.start()
+        except Exception as e:   # reported by the caller's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        for proc in list(h.shard_procs) + [h.coord_proc]:
+            if proc is not None:
+                proc.kill()
+        t.join(10)
+        pytest.fail(f"ClusterHarness did not start within {timeout_s} s")
+    if errors:
+        raise errors[0]
+    return h
 
 
 @pytest.fixture(params=KINDS)
@@ -26,10 +57,24 @@ def backend_factory(request, tmp_path):
     """The reference conftest's factory for the port's backends."""
     kind = request.param
     live = []
+    clusters = []
 
     def make(**kwargs):
         if kind == "mono":
             return BackendService(**kwargs)
+        if kind == "sharded-proc":
+            from repro_torch.core.cluster import ClusterHarness
+
+            h = ClusterHarness(str(tmp_path / f"cluster-{len(clusters)}"), n_servers=2,
+                               n_slots=4, block_size=kwargs.pop("block_size", 4096),
+                               policy="invalidate", checkpoint_records=400,
+                               startup_timeout_s=HARNESS_TIMEOUT_S)
+            clusters.append(h)
+            start_harness(h)
+            assert not kwargs, f"sharded-proc kind can't plumb {kwargs}"
+            client = h.client()
+            live.append((None, client))
+            return client
         if kind.startswith("sharded"):
             return ShardedBackend(n_shards=int(kind[len("sharded"):]), **kwargs)
         from repro_torch.core.remote import RemoteBackend
@@ -47,7 +92,10 @@ def backend_factory(request, tmp_path):
     yield make
     for server, client in live:
         client.close()
-        server.shutdown()
+        if server is not None:
+            server.shutdown()
+    for h in clusters:
+        h.stop()
 
 
 @pytest.fixture

@@ -168,7 +168,13 @@ def _torch_loss_and_grads(cfg, host, batch, **kw):
                                         ("mixtral-8x7b", "float32"),
                                         ("internvl2-76b", "float32"),
                                         ("internvl2-76b", "bfloat16"),
-                                        ("musicgen-large", "float32")])
+                                        ("musicgen-large", "float32"),
+                                        ("granite-3-2b", "float32"),
+                                        ("granite-3-2b", "bfloat16"),
+                                        ("deepseek-coder-33b", "float32"),
+                                        ("deepseek-coder-33b", "bfloat16"),
+                                        ("minitron-8b", "float32"),
+                                        ("minitron-8b", "bfloat16")])
 def test_loss_fn_value_and_grads_match_jax(arch, dtype):
     jcfg, cfg, jparams, host = _setup(arch)
     batch = _batch(cfg)

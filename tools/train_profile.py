@@ -34,97 +34,27 @@ two versions can be compared in one run on one card.
 from __future__ import annotations
 
 import argparse
-import bisect
 import dataclasses
 import json
 import subprocess
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "profile"    # the profiler's trace goes here (git ignores build/)
-GROUPS = (("flash backward", ("fa_bwd",)), ("flash forward", ("fa_fwd",)),
-          ("scan backward", ("ssm_scan_bwd",)), ("scan forward", ("ssm_scan_kernel",)),
-          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")))
 
 
-MOE_PARTS = {"moe_routing": "MoE routing", "moe_dispatch": "MoE dispatch scatter/gather",
-             "moe_experts": "MoE expert products"}
+def _perf():
+    """``repro_torch.launch.perf`` of this checkout (its kernel groups and
+    trace readers), whatever ``--src`` the step runs from."""
+    import importlib.util
 
-
-BLOCK_RANGE = "decoder_block"   # the tool's range around each block's forward
-
-
-def moe_parts(events):
-    """{External id of an op: MoE part} from a chrome trace's events, for
-    the ops that launch kernels. A forward op (inside a ``decoder_block``
-    range: the forward pass and the remat recompute inside the backward)
-    belongs to the ``moe_ffn`` range around it, if any. A backward op
-    belongs to the part of the forward op that made the autograd node
-    whose evaluation runs it, matched by sequence number."""
-    ops, spans, evals = {}, defaultdict(list), defaultdict(list)
-    for ev in events:
-        args, name = ev.get("args") or {}, ev.get("name", "")
-        if ev.get("ph") != "X":
-            continue
-        if name in MOE_PARTS or name == BLOCK_RANGE:
-            spans[ev["tid"]].append((ev["ts"], ev["ts"] + ev["dur"], name))
-        elif name.startswith("autograd::engine::evaluate_function"):
-            evals[ev["tid"]].append((ev["ts"], ev["ts"] + ev["dur"],
-                                     args.get("Sequence number")))
-        if ev.get("cat") == "cpu_op" and "External id" in args:
-            ops[args["External id"]] = ev
-    for v in evals.values():
-        v.sort()
-
-    def enclosing(ev, names):
-        return next((n for a, b, n in spans.get(ev["tid"], ())
-                     if n in names and a <= ev["ts"] <= b), None)
-
-    def evaluation(ev):
-        """Sequence number of the node whose evaluation runs ``ev``."""
-        runs = evals.get(ev["tid"], [])
-        i = bisect.bisect_right(runs, (ev["ts"], float("inf"), 0)) - 1
-        return runs[i][2] if i >= 0 and runs[i][1] >= ev["ts"] else None
-
-    by_seq, out = {}, {}
-    for ev in ops.values():
-        if enclosing(ev, (BLOCK_RANGE,)) is None:
-            continue
-        part = enclosing(ev, MOE_PARTS)
-        seq = ev["args"].get("Sequence number")
-        if part and seq is not None and evaluation(ev) is None:   # the first forward
-            by_seq[seq] = part
-    for ext, ev in ops.items():
-        if enclosing(ev, (BLOCK_RANGE,)) is not None:
-            part = enclosing(ev, MOE_PARTS)
-        else:
-            part = by_seq.get(evaluation(ev))
-        if part:
-            out[ext] = MOE_PARTS[part]
-    return out
-
-
-def ranged_blocks(M, record_function):
-    """Wrap ``M.block_fwd`` (which ``forward_hidden`` looks up at each
-    call, the remat recompute too) in a ``decoder_block`` range."""
-    block_fwd = M.block_fwd
-
-    def ranged(*args, **kwargs):
-        with record_function(BLOCK_RANGE):
-            return block_fwd(*args, **kwargs)
-
-    M.block_fwd = ranged
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other (elementwise, reductions, copies)"
+    path = ROOT / "src" / "repro_torch" / "launch" / "perf.py"
+    spec = importlib.util.spec_from_file_location("_repro_torch_perf", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> int:
@@ -198,7 +128,8 @@ def main() -> int:
           f"AdamW update {adam_s:.4f} s")
 
     # one whole step under the profiler
-    ranged_blocks(M, record_function)
+    perf = _perf()
+    perf.ranged_blocks(M, record_function)
     batch = synth_batch(dcfg, args.steps + 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -208,36 +139,19 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     trace = OUT / "train_profile_trace.json"
     prof.export_chrome_trace(str(trace))
-    by_kernel = defaultdict(float)
-    counts = defaultdict(int)
-    events = json.loads(trace.read_text())["traceEvents"]
-    parts = moe_parts(events)
-    moe_split = defaultdict(float)
-    for ev in events:
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            by_kernel[ev["name"]] += ev.get("dur", 0) / 1e3   # ms
-            counts[ev["name"]] += 1
-            group = group_of(ev["name"])
-            if group.startswith("flash"):
-                group = "attention (flash forward and backward)"
-            else:
-                group = parts.get((ev.get("args") or {}).get("External id"), group)
-            moe_split[group] += ev.get("dur", 0) / 1e3
-    busy = sum(by_kernel.values())
-    groups = defaultdict(float)
-    for name, ms in by_kernel.items():
-        groups[group_of(name)] += ms
+    dev = perf.device_time(json.loads(trace.read_text())["traceEvents"])
+    busy = sum(dev["kernel"].values())
     print(f"profiled step: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({busy / (wall * 1e3):.1%} of the wall time; profiler on)")
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    for group, ms in sorted(dev["group"].items(), key=lambda kv: -kv[1]):
         print(f"  {group}: {ms:.2f} ms ({ms / max(busy, 1e-9):.1%} of device time)")
-    if parts:
+    if any(part in perf.MOE_PARTS.values() for part in dev["part"]):
         print("  split by the MoE layer's parts:")
-        for group, ms in sorted(moe_split.items(), key=lambda kv: -kv[1]):
+        for group, ms in sorted(dev["part"].items(), key=lambda kv: -kv[1]):
             print(f"    {group}: {ms:.2f} ms ({ms / max(busy, 1e-9):.1%} of device time)")
     print("  longest kernels:")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"    {ms:9.2f} ms  x{counts[name]:<5d} {name[:110]}")
+    for name, ms in sorted(dev["kernel"].items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {ms:9.2f} ms  x{int(dev['count'][name]):<5d} {name[:110]}")
     return 0
 
 
