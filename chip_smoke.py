@@ -18,8 +18,9 @@ non-zero at the first failure:
      hymba-1.5b: H 25, KV 5, hd 64, window 2048; qwen3-moe-30b-a3b: H 32,
      KV 4, hd 128, 8 query heads a KV head; internvl2-76b: S 768 (256 pixel
      embeddings + 512 tokens), H 64, KV 8, hd 128; musicgen-large: H 32,
-     KV 32, hd 64, one query head a KV head; causal, bf16; each on
-     ``fa_fwd_sm90``); kernel, plain and
+     KV 32, hd 64, one query head a KV head; ``examples/
+     torch_train_100m.py``'s default: B 8, S 256, H 12, KV 3, hd 64;
+     causal, bf16; each on ``fa_fwd_sm90``); kernel, plain and
      ``scaled_dot_product_attention``
      times, and the model-level ``attention()`` from (B, S, H, hd) inputs,
      which adds the layout copies around the kernel;
@@ -28,7 +29,7 @@ non-zero at the first failure:
      forward kernel's output and lse, against its plain version
      (``attention_bwd_ref``) at the JAX kernel tests' cases in float32
      (CUDA-core route) and bf16 (tensor-core route at head_dim 64 and 128),
-     at the same five shapes (bf16, all on the tensor-core route);
+     at the same six shapes (bf16, all on the tensor-core route);
      tensor-core kernels (eager and CUDA graph), the CUDA-core route
      on the same bf16 inputs, plain and SDPA backward times;
   5. block delta: both kernels (the cluster kernel and the two-pass one)
@@ -36,7 +37,10 @@ non-zero at the first failure:
      subnormal); the cluster kernel against the plain version on the
      float32 leaves each serving path passes it, flat and ragged (8 of
      qwen2-1.5b, 18 of hymba-1.5b, 10 of qwen3-moe-30b-a3b at 1 layer, 9
-     of internvl2-76b at 1 layer, up to 4.2 GB a leaf); times of both
+     of internvl2-76b at 1 layer, up to 4.2 GB a leaf, in 65,536-element
+     rows; 8 of ``examples/torch_train_100m.py``'s model in its
+     262,144-element (1 MiB) rows, the cluster kernel's 1,024-thread,
+     16-block shape, 2 of them ragged); times of both
      kernels, eager and as a
      CUDA graph, and of the plain version;
   6. selective scan: the kernel against its plain version at the JAX
@@ -117,7 +121,24 @@ non-zero at the first failure:
      and the wall time; then ``moe_ffn_a2a`` at qwen3-moe-30b-a3b's width
      (B 4 x S 512, bf16) against ``moe_ffn``, outputs and routing bit for
      bit (the exchange over one rank is an identity); the phase's seconds;
-  11. one JSON line of per-kernel numbers, then the result line
+  11. the plan on four ranks (``dist_ranks``): ``python -m
+     repro_torch.launch.ranks``, started in the background after the
+     kernels' timed phases and read after the small checks, runs four gloo ranks as CPU processes (the card is not used)
+     on a (2, 2) ``data`` x ``model`` mesh: one planned float32 train step
+     and one planned prefill of the reduced qwen2-1.5b, hymba-1.5b and
+     qwen3-moe-30b-a3b against the same steps on plain tensors
+     (``RANKS_TOL``), no ``_StridedShard`` placement made; torch's version
+     is printed;
+  12. the examples (``examples``), five subprocesses at once:
+     ``examples/torch_train_100m.py --steps 2 --ckpt-every 1`` at its full
+     default width (109 M parameters, 12 layers, B 8 x S 256) on the card
+     (finite losses, the second checkpoint a delta, flash and block-delta
+     launches above 0, every flash launch on the tensor-core kernels), and
+     ``torch_serve_snapshot.py``, ``torch_elastic_workers.py``,
+     ``torch_quickstart.py`` and ``torch_wordcount_functions.py`` as they
+     are (``EXAMPLE_CHECKS``); the flash times at the example's shape are
+     phases 3 and 4's;
+  13. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
      over the full-width runs (``launches_by_path`` splits it); its times
      and bound are at the qwen2-1.5b shapes for flash attention, its
@@ -142,6 +163,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import resource
 import shutil
@@ -176,6 +198,7 @@ FLASH_SHAPES = {
     "qwen3-moe-30b-a3b": (4, 512, 32, 4, 128, 0),
     "internvl2-76b": (4, 768, 64, 8, 128, 0),
     "musicgen-large": (4, 512, 32, 32, 64, 0),
+    "torch_train_100m": (8, 256, 12, 3, 64, 0),
 }
 SHAPE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "library_device_ms")
@@ -278,6 +301,26 @@ TXN_LAYERS = 1
 # expert leaf (1, 128, 2048, 768) 0.81 GB (2 layers until internvl2-76b's
 # 4.2 GB leaves joined the script and took its time).
 MOE_LAYERS = 1
+# The plan on four gloo ranks (``repro_torch.launch.ranks``) against the
+# unsharded steps: the bounds of tests/test_torch_dist_ranks.py (loss and
+# grad norm relative; new params absolute where the gradient is above 1e-3
+# of its leaf's largest; prefill logits absolute).
+RANKS_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "param": 1e-6, "prefill": 1e-5}
+RANKS_BUDGET_S = 60          # the dist_ranks phase's seconds, printed beside its time
+# ``examples/torch_train_100m.py`` on the card: 2 steps with a checkpoint
+# after each, so that the second checkpoint is a delta against the first.
+# Its FaaSFS stack is host Python (about 0.2 GB/s), and each step loads and
+# commits the 1.31 GB state (params, m and v), as each checkpoint writes it:
+# 4 steps with a checkpoint every 2 took 62.3 s on the H100 (PERF.md §6),
+# 2 steps save two of them. The other examples run beside it.
+EXAMPLE_ARGS = ("--steps", "2", "--ckpt-every", "1")
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_CHECKS = {   # the other examples, each with a line it must print
+    "torch_serve_snapshot.py": r"^served 15 requests across 5 snapshot versions",
+    "torch_elastic_workers.py": r"^final committed step count: (\d+) \(== \1 worker commits",
+    "torch_quickstart.py": r"^7\. remote commit",
+    "torch_wordcount_functions.py": r"^top words: ",
+}
 
 
 class Failed(Exception):
@@ -1902,6 +1945,131 @@ def dist_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg, moe_cfg)
     return path_launches
 
 
+def _start_script(args):
+    """A Python script or module of the checkout started in a subprocess
+    (``PYTHONPATH=src``), its output piped."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+
+
+def _finish_script(proc, what: str, timeout: float) -> str:
+    """The standard output of ``proc`` run to its end; fails on a non-zero
+    exit, or after ``timeout`` seconds (the process killed)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failed(f"{what}: no end after {timeout} s")
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def dist_ranks_start():
+    """``python -m repro_torch.launch.ranks`` started in the background
+    (four CPU processes); ``dist_ranks_phase`` reads it."""
+    return _start_script(["-m", "repro_torch.launch.ranks"]), time.perf_counter()
+
+
+def dist_ranks_phase(proc, t0: float) -> None:
+    """The four ranks' reports held to ``RANKS_TOL``, and no
+    ``_StridedShard`` placement made."""
+    out = _finish_script(proc, "dist_ranks",
+                         max(1.0, RANKS_BUDGET_S * 3 - (time.perf_counter() - t0)))
+    rep = json.loads(out.strip().splitlines()[-1])
+    for r in rep["ranks"]:
+        check("error" not in r, f"dist_ranks: rank {r['rank']}: {r.get('error')} "
+                                f"{r.get('trace', '')[-1500:]}")
+        errors = [f"{c['arch']}: {c['error'][:600]} at {' < '.join(c['where'][::-1])}"
+                  for c in r["cells"] if "error" in c]
+        check(not errors, f"dist_ranks: rank {r['rank']}: " + " | ".join(errors))
+        for c in r["cells"]:
+            (wl, gl), (wn, gn) = c["loss"], c["grad_norm"]
+            rl, rn = abs(gl - wl) / abs(wl), abs(gn - wn) / abs(wn)
+            check(rl <= RANKS_TOL["loss"] and rn <= RANKS_TOL["grad_norm"]
+                  and c["param_err"] <= RANKS_TOL["param"] and c["placements_kept"]
+                  and c["prefill_err"] <= RANKS_TOL["prefill"]
+                  and c["train_strided"] == 0 and c["prefill_strided"] == 0,
+                  f"dist_ranks: rank {r['rank']} {c['arch']}: {c}")
+    cells = rep["ranks"][0]["cells"]
+    wall = time.perf_counter() - t0
+    phase("dist_ranks", f"torch {rep['torch']}: 4 gloo ranks, CPU processes (the card is not "
+                        f"used), (2, 2) data x model mesh; one planned float32 train step and "
+                        f"one planned prefill of each reduced config vs the unsharded steps: "
+                        + "; ".join(f"{c['arch']} loss {c['loss'][1]:.6f} vs {c['loss'][0]:.6f},"
+                                    f" grad norm {c['grad_norm'][1]:.6f} vs "
+                                    f"{c['grad_norm'][0]:.6f}, params {c['param_err']:.1e}, "
+                                    f"prefill {c['prefill_err']:.1e}" for c in cells)
+                        + f" (bounds {RANKS_TOL}); _StridedShard placements made: 0 on every "
+                          f"rank; ranks {rep['seconds']:.1f} s, phase {wall:.1f} s wall (budget "
+                          f"{RANKS_BUDGET_S} s; started after the kernels' timed phases, "
+                          f"beside the small checks)")
+
+
+def example_train_cfg():
+    """``examples/torch_train_100m.py``'s model at its default width and
+    depth (d_model 768, 12 layers), and its FaaSFS block size: its
+    checkpoints and transactions hold each float32 leaf of at least one
+    block against the block-delta kernel in rows of that size."""
+    import argparse
+    import importlib.util
+
+    path = ROOT / "examples" / "torch_train_100m.py"
+    spec = importlib.util.spec_from_file_location("torch_train_100m", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build_cfg(argparse.Namespace(d_model=768, layers=12)), mod.BLOCK_BYTES
+
+
+def examples_phase() -> dict:
+    """The port's examples on the card, each as a subprocess, all at once:
+    the ~100M-parameter transactional training run at its full default
+    width (``EXAMPLE_ARGS``) and the others of ``EXAMPLE_CHECKS``. Returns
+    the training run's kernel launches."""
+    t0 = time.perf_counter()
+    procs = {"torch_train_100m.py": _start_script(["examples/torch_train_100m.py",
+                                                   *EXAMPLE_ARGS])}
+    procs.update({name: _start_script([f"examples/{name}"]) for name in EXAMPLE_CHECKS})
+    try:
+        outs = {name: _finish_script(p, name, EXAMPLE_TIMEOUT_S) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    out = outs.pop("torch_train_100m.py")
+    losses = [float(m) for m in re.findall(r"^step +\d+ loss=(\S+)", out, re.M)]
+    ckpts = re.findall(r"checkpoint @ (\d+): ([\d,]+) bytes \((\d+) blocks, (\w+)\)", out)
+    k = re.search(r"^kernels on cuda: flash_attention (\d+) \(sm90 (\d+)\), "
+                  r"flash_attention_bwd (\d+) \(sm90 (\d+)\), block_delta (\d+)$", out, re.M)
+    check(losses and all(math.isfinite(x) for x in losses), f"torch_train_100m: losses {losses}")
+    check(len(ckpts) == 2 and ckpts[0][3] == "full" and ckpts[1][3] == "delta",
+          f"torch_train_100m: checkpoints {ckpts}")
+    check(k is not None, f"torch_train_100m: no kernels line in {out[-1500:]}")
+    fa, fa90, fb, fb90, bd = (int(x) for x in k.groups())
+    check(fa > 0 and fa == fa90 and fb > 0 and fb == fb90 and bd > 0,
+          f"torch_train_100m: launches flash {fa} (sm90 {fa90}), backward {fb} (sm90 {fb90}), "
+          f"block delta {bd}")
+    model = re.search(r"^model: .*$", out, re.M).group(0)
+    done = re.search(r"^done: .*$", out, re.M).group(0)
+    phase("examples", f"torch_train_100m.py {' '.join(EXAMPLE_ARGS)} on the card ({model}; "
+                      f"B 8 x S 256, bf16): losses {', '.join(f'{x:.4f}' for x in losses)} "
+                      f"(printed every 10 steps); checkpoints "
+                      + ", ".join(f"@{s} {kind} {blocks} blocks {b} B" for s, b, blocks, kind
+                                  in ckpts)
+                      + f"; {done}; launches flash {fa} forward, {fb} backward (all sm90), "
+                        f"block delta {bd}")
+    for name, want in EXAMPLE_CHECKS.items():
+        check(re.search(want, outs[name], re.M) is not None,
+              f"{name}: no line matching {want!r} in {outs[name][-1500:]}")
+        phase("examples", f"{name}: {outs[name].strip().splitlines()[-1][:200]}")
+    phase("examples", f"five examples at once, {wall:.1f} s")
+    return {"flash_attention": fa, "flash_attention_bwd": fb, "block_delta": bd,
+            "ssm_scan": 0, "ssm_scan_bwd": 0}
+
+
 def _free_host_and_device(torch) -> None:
     """Collect the previous phase's trees (a ServeSlice holds reference
     cycles), give freed heap pages back to the OS and empty the caching
@@ -1974,6 +2142,7 @@ def main() -> int:
     moe_tag = f"{moe.name} ({MOE_LAYERS} layer)"
     vlm = dataclasses.replace(get_config("internvl2-76b"), num_layers=VLM_LAYERS)
     vlm_tag = f"{vlm.name} ({VLM_LAYERS} layer)"
+    ranks = None
     try:
         t0 = time.perf_counter()
         built = _build.build()
@@ -1989,11 +2158,13 @@ def main() -> int:
                    "flash_attention_bwd": flash_bwd_phase(torch, fa_ops, attention_lse_ref,
                                                           attention_bwd_ref)}
         block_delta_special_check(torch, bd_ops, block_delta_flat_ref)
-        for cfg, tag in [(c, c.name) for c in paths] + [(moe, moe_tag), (vlm, vlm_tag)]:
+        example, example_block_bytes = example_train_cfg()
+        for cfg, tag, be in ([(c, c.name, block_elems) for c in paths]
+                             + [(moe, moe_tag, block_elems), (vlm, vlm_tag, block_elems),
+                                (example, "torch_train_100m.py", example_block_bytes // 4)]):
             leaf_numels = [math.prod(d.shape) for d in M.param_defs(cfg)
-                           if math.prod(d.shape) >= block_elems]
-            delta = block_delta_phase(torch, bd_ops, block_delta_flat_ref, leaf_numels,
-                                      block_elems, tag)
+                           if math.prod(d.shape) >= be]
+            delta = block_delta_phase(torch, bd_ops, block_delta_flat_ref, leaf_numels, be, tag)
             entries.setdefault("block_delta", delta)
         entries["ssm_scan"] = scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref)
         entries["ssm_scan_bwd"] = scan_bwd_phase(torch, scan_ops, selective_scan_ref,
@@ -2001,10 +2172,15 @@ def main() -> int:
         small = [reduced_config(get_config(name)) for name in (
             "qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
             "internvl2-76b", "musicgen-large")]
+        # the four CPU ranks start after the kernels' timed phases, so that
+        # no eager time above shares the host with them, and run beside the
+        # small checks, which time nothing
+        ranks = dist_ranks_start()
         for cfg in small:
             small_input_phase(torch, serve, M, cfg)
         for cfg in small:
             small_train_phase(torch, M, runtime, adamw, synth, counters, cfg)
+        dist_ranks_phase(*ranks)
         by_path = {}
         # the largest host footprint first, from the lowest host RSS
         _free_host_and_device(torch)
@@ -2033,9 +2209,15 @@ def main() -> int:
         by_path[f"dist {paths[0].name}"] = dist_phase(
             torch, M, runtime, adamw, synth, counters, moe_mod, paths[0],
             get_config("qwen3-moe-30b-a3b"))
+        _free_host_and_device(torch)
+        by_path["example torch_train_100m"] = examples_phase()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if ranks is not None and ranks[0].poll() is None:
+            ranks[0].kill()
+            ranks[0].wait()
 
     for name, e in entries.items():
         e["launches_by_path"] = {p: n[name] for p, n in by_path.items()}

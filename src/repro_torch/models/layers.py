@@ -39,18 +39,15 @@ def _names(entry) -> Tuple[str, ...]:
 def placements(s: Spec, mesh) -> Tuple:
     """DTensor placements over ``mesh`` (its dims named as the spec's
     axes) for the spec ``s``: mesh dim m holds ``Shard(d)`` when tensor dim d
-    names m and m has more than one rank, else ``Replicate()`` (a split
-    over one rank is none, and DTensor reshapes fewer split dims). A dim
-    split over several axes is split over them major first, as
-    ``PartitionSpec``."""
+    names m, else ``Replicate()``. A dim split over several axes is split
+    over them major first, as ``PartitionSpec``."""
     out = [Replicate()] * mesh.ndim
     for d, entry in enumerate(s):
         for name in _names(entry):
             m = mesh.mesh_dim_names.index(name)
             if not isinstance(out[m], Replicate):
                 raise ValueError(f"mesh axis {name!r} named twice in {s}")
-            if mesh.size(m) > 1:
-                out[m] = Shard(d)
+            out[m] = Shard(d)
     return tuple(out)
 
 
@@ -103,7 +100,7 @@ def on_shards(fn: Callable, args: Sequence, in_specs: Sequence[Optional[Spec]],
     first (None: a plain argument), ``fn`` runs on their local tensors and
     its outputs are DTensors of ``out_specs``; differentiable both ways
     (the gradient of an input whole along a mesh axis that splits another
-    input is summed over that axis).
+    input, or an output, is summed over that axis).
     For the kernels behind ctypes, which take plain tensors: their specs
     put nothing on a dim the kernel reduces over, so nothing is exchanged
     inside. Plain ``args`` call ``fn`` as it is."""
@@ -115,9 +112,11 @@ def on_shards(fn: Callable, args: Sequence, in_specs: Sequence[Optional[Spec]],
     # a placement list per value; a tuple of them for several outputs
     ins = tuple(None if s is None else list(placements(s, mesh)) for s in in_specs)
     outs = tuple(list(placements(s, mesh)) for s in out_specs)
-    # an input whole along a mesh axis that splits another input gets a
-    # part of its gradient on each rank of that axis: their sum
-    split = {m for pl in ins if pl for m, p in enumerate(pl) if isinstance(p, Shard)}
+    # an input whole along a mesh axis that splits another input or an
+    # output gets a part of its gradient on each rank of that axis: their
+    # sum (over one rank, the part itself)
+    split = {m for pl in ins + outs if pl for m, p in enumerate(pl)
+             if isinstance(p, Shard) and mesh.size(m) > 1}
     grads = tuple(None if pl is None else
                   [Partial() if m in split and isinstance(p, Replicate) else p
                    for m, p in enumerate(pl)] for pl in ins)
@@ -215,7 +214,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # --------------------------------------------------------------------------- #
 # Embedding
 # --------------------------------------------------------------------------- #
-def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype,
+                 rows: Optional[Spec] = None) -> torch.Tensor:
+    """The rows of ``embedding`` (V, D) at ``tokens`` (B, S), in
+    ``compute_dtype``. Under a plan (DTensors, ``rows`` the tokens' spec)
+    the lookup runs on each rank's tokens with the table whole: torch
+    2.11's DTensor has no working rule for the lookup's backward
+    (``index_put`` of a replicated table at batch-split indices)."""
+    if rows is not None and isinstance(embedding, DTensor):
+        return on_shards(lambda e, t: e[t].to(compute_dtype), (embedding, tokens),
+                         (spec(None, None), rows), (tuple(rows) + (None,),))
     return embedding[tokens].to(compute_dtype)
 
 

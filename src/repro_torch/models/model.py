@@ -291,6 +291,16 @@ class ActSharding:
     def res(self, x):
         return constrain(x, self.residual)
 
+    def whole(self, x):
+        """``x`` (B, S, ...) with the residual's batch split and its
+        sequence whole: the sequence-parallel gather at the input of the
+        column-parallel products, so that DTensor folds (B, S) for them
+        with only the batch split. The gradient is reduce-scattered back
+        to the residual's split. Without a residual spec, ``x``."""
+        if self.residual is None:
+            return x
+        return constrain(x, spec(self.residual[0], None))
+
     def dres(self, x):
         return constrain(x, self.decode_residual)
 
@@ -320,28 +330,30 @@ def _model_size(x) -> int:
     return mesh.size(mesh.mesh_dim_names.index("model")) if "model" in mesh.mesh_dim_names else 0
 
 
-def _kv_heads_per_shard(H: int, KV: int, n: int) -> Optional[List[int]]:
+def _kv_heads_per_shard(H: int, KV: int, n: int) -> Optional[Tuple[int, int]]:
     """When the query heads split over n ``model`` ranks but the KV heads do
-    not: the KV heads each rank's query heads read, rank after rank (a
-    rank's heads cover whole groups, or share one KV head); None when the
-    query heads do not split either."""
+    not: (h, per), rank r's query heads reading the ``per`` KV heads from
+    ``r * h // g`` on (g query heads a KV head; a rank's heads cover whole
+    groups, or share one KV head); None when the query heads do not split
+    either."""
     if not n or H % n or not KV % n:
         return None
     h, g = H // n, H // KV
     if h % g and g % h:
         return None
-    per = max(1, h // g)
-    return [r * h // g + j for r in range(n) for j in range(per)]
+    return h, max(1, h // g)
 
 
 def _attention(cfg, q, k, v, shardings, *, q_chunk: int, attn_impl: str):
     """``attention_xla`` (the flash kernel on the card); under a plan on
     each rank's shards: batch on the batch axes and the heads on ``model``
-    when the query heads divide it. When the KV heads do not, K and V are
-    first gathered to the KV heads each rank's query heads read, rank after
-    rank (the grouped heads stay grouped); with neither split the heads
-    stay whole."""
-    def fn(q, k, v):
+    when the query heads divide it. When the KV heads do not, K and V reach
+    each rank whole over the heads and the rank slices the KV heads its
+    query heads read (the grouped heads stay grouped; the slice's gradient
+    is summed over ``model``); with neither split the heads stay whole."""
+    def fn(q, k, v, lo=0, per=0):
+        if per:
+            k, v = k[:, :, lo:lo + per], v[:, :, lo:lo + per]
         return attention_xla(q, k, v, causal=True, window=cfg.sliding_window,
                              q_chunk=q_chunk, impl=attn_impl)
 
@@ -350,16 +362,20 @@ def _attention(cfg, q, k, v, shardings, *, q_chunk: int, attn_impl: str):
     specs = _kernel_specs(cfg, shardings, q)
     s, _ = specs((cfg.num_heads, cfg.num_kv_heads), None)
     sk = s
-    idx = _kv_heads_per_shard(cfg.num_heads, cfg.num_kv_heads, _model_size(q))
-    if idx is not None:
+    kernel = fn
+    heads = _kv_heads_per_shard(cfg.num_heads, cfg.num_kv_heads, _model_size(q))
+    if heads is not None:
+        # sliced on each rank's shard: DTensor's index_select backward on a
+        # sharded input keeps the whole shape locally
+        # (tests/test_torch_dist_ranks.py pins it)
+        h, per = heads
         s, _ = specs((cfg.num_heads,), None)
         sk = spec(s[0], None, None, None)
-        rows = torch.tensor(idx, device=k.device)
-        k = constrain(k.index_select(2, rows), sk)
-        v = constrain(v.index_select(2, rows), sk)
-        sk = s
+        r = q.device_mesh.get_local_rank("model")
+        kernel = functools.partial(fn, lo=r * h // (cfg.num_heads // cfg.num_kv_heads), per=per)
     flops = functools.partial(attention_flops, window=cfg.sliding_window)
-    return on_shards(counted_kernel("flash_attention", fn, flops), (q, k, v), (s, sk, sk), (s,))
+    return on_shards(counted_kernel("flash_attention", kernel, flops), (q, k, v), (s, sk, sk),
+                     (s,))
 
 
 def _split_heads(t, B: int, S: int, heads: int, hd: int):
@@ -422,13 +438,12 @@ def _attn_branch(cfg, lp, h, positions, shardings, *, q_chunk: int, attn_impl: s
 
 
 def _ssm_branch(cfg, lp, h, shardings, *, scan_impl: str):
-    scan = None
+    kw = dict(dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state, impl=scan_impl)
+    mixer = None
     if isinstance(h, DTensor):
-        specs = _kernel_specs(cfg, shardings, h)
-        scan = functools.partial(ssm_mod.sharded_scan, specs=specs)
-    out, (conv, hs) = ssm_mod.mamba_block(
-        h, lp["ssm"], dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state,
-        impl=scan_impl, return_state=True, scan=scan)
+        mixer = functools.partial(ssm_mod.sharded_mixer, **kw,
+                                  specs=_kernel_specs(cfg, shardings, h))
+    out, (conv, hs) = ssm_mod.mamba_block(h, lp["ssm"], **kw, return_state=True, mixer=mixer)
     return out, {"conv": conv, "ssm": hs}
 
 
@@ -454,7 +469,7 @@ def _ffn_branch(cfg, lp, h, shardings: ActSharding = NO_SHARDING):
                        groups=shardings.moe_groups, token_spec=shardings.moe_tokens,
                        buf_spec=shardings.moe_buf)
     mp = lp["mlp"]
-    return swiglu_mlp(h, mp["wi"], mp["wg"], mp["wo"]), None
+    return swiglu_mlp(shardings.whole(h), mp["wi"], mp["wg"], mp["wo"]), None
 
 
 def block_fwd(cfg, x, lp, positions, shardings: ActSharding = NO_SHARDING, *,
@@ -466,23 +481,28 @@ def block_fwd(cfg, x, lp, positions, shardings: ActSharding = NO_SHARDING, *,
     {"conv", "ssm"} for the SSM, both for hybrid. Under a plan the layer's
     weights are gathered here (FSDP), again in a remat recompute."""
     lp = _tree_map(gather_fsdp, lp)
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    # under a plan the branches read the normed residual with its sequence
+    # whole, and their outputs (partial sums over ``model`` after the
+    # row-parallel products) are reduce-scattered back to the residual's
+    # split before the add: no product folds a split sequence into a split
+    # batch (a ``_StridedShard``)
+    h = shardings.whole(rms_norm(x, lp["ln1"], cfg.norm_eps))
     if cfg.family == "hybrid":
         attn_out, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
                                        attn_impl=attn_impl)
         ssm_out, ssm_state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
         state.update(ssm_state)
-        mix = _mix(cfg, lp, attn_out, ssm_out)
+        mix = _mix(cfg, lp, shardings.res(attn_out), shardings.res(ssm_out))
     elif cfg.family == "ssm":
         mix, state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
     else:
         mix, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
                                   attn_impl=attn_impl)
-    x = shardings.res(x + mix)
+    x = shardings.res(x + shardings.res(mix))
     aux = None
     if cfg.is_moe or cfg.d_ff > 0:
         y, aux = _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), shardings)
-        x = shardings.res(x + y)
+        x = shardings.res(x + shardings.res(y))
     return x, aux, state
 
 
@@ -546,7 +566,8 @@ def forward_hidden(
     layer's products with no batch dimension as well (``_remat_context``).
     """
     context_fn = _remat_context(remat_policy)
-    x = embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype)
+    rows = spec(shardings.residual[0], None) if shardings.residual else None
+    x = embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype, rows)
     if cfg.vision_prefix and pixel_embeds is not None:
         x = torch.cat([pixel_embeds.to(compute_dtype), x], dim=1)
     B, S, _ = x.shape
@@ -608,6 +629,9 @@ def loss_fn(
         compute_dtype=compute_dtype, q_chunk=q_chunk, remat=remat, remat_policy=remat_policy,
         attn_impl=attn_impl, scan_impl=scan_impl,
     )
+    # the head's products are column-parallel (vocab over ``model``): the
+    # sequence whole, as at a block's products
+    hidden = shardings.whole(hidden)
     if cfg.vision_prefix and pixels is not None:
         hidden = hidden[:, cfg.vision_prefix:]
     head = lm_head_weight(cfg, params).to(compute_dtype)
@@ -646,7 +670,7 @@ def prefill(
         attn_impl=attn_impl, scan_impl=scan_impl,
     )
     head = lm_head_weight(cfg, params).to(compute_dtype)
-    logits = (hidden[:, -1] @ head).float()
+    logits = (shardings.whole(hidden)[:, -1] @ head).float()
     if shardings.kv_cache is not None and "k" in cache:
         cache["k"] = constrain(cache["k"], shardings.kv_cache)
         cache["v"] = constrain(cache["v"], shardings.kv_cache)

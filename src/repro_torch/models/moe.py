@@ -197,7 +197,10 @@ def _moe_sharded(x, router, wi, wg, wo, E: int, k: int, C: int, Tg: int, token_s
     Routing, dispatch and combine run on each rank's groups; the
     load-balance vectors of the groups (equal in size) are averaged before
     their product."""
-    b = token_spec[0]
+    # one group is split over no axis: DTensor cannot drop or move a split
+    # singleton dim, which the expert products' views do (on a mesh whose
+    # batch axes hold one rank, where one group can take a split)
+    b = token_spec[0] if x.shape[0] * x.shape[1] > Tg else None
     rows = spec(b, None, None)
 
     def route(x, router):
@@ -209,6 +212,15 @@ def _moe_sharded(x, router, wi, wg, wo, E: int, k: int, C: int, Tg: int, token_s
         return buf, src, w, me[None], ce[None]
 
     per_group = spec(b, None)
+    if buf_spec is not None and isinstance(buf_spec[1], str):
+        # experts over ``model`` only where they divide it (as the params'
+        # specs): an uneven split would fold the capacity dim into the
+        # batch groups' split in the expert products (a ``_StridedShard``)
+        mesh = x.device_mesh
+        if E % mesh.size(mesh.mesh_dim_names.index(buf_spec[1])):
+            buf_spec = (buf_spec[0], None) + tuple(buf_spec[2:])
+    if buf_spec is not None and b is None:
+        buf_spec = (None,) + tuple(buf_spec[1:])
     buf, src, w, me, ce = on_shards(
         route, (x, router), (rows, spec(None, None)),
         (spec(b, None, None, None), per_group, per_group, per_group, per_group))

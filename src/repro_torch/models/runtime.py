@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import model as M
@@ -187,13 +187,23 @@ def plan_cell(
 # --------------------------------------------------------------------------- #
 # Abstract inputs and state (DTensors over the mesh; fake under FakeTensorMode)
 # --------------------------------------------------------------------------- #
+def _distribute(full: torch.Tensor, mesh, s: Spec) -> DTensor:
+    """``full``, which every rank holds whole, as a DTensor on the spec
+    ``s``: each rank keeps its shard, cut locally (no exchange). Over mesh
+    axes of one rank the shard is ``full`` itself, placed whole and then
+    redistributed (which over one rank moves nothing), where
+    ``distribute_tensor`` would copy it."""
+    want = placements(tuple(s) + (None,) * (full.dim() - len(s)), mesh)
+    cut = tuple(Replicate() if mesh.size(m) == 1 else p for m, p in enumerate(want))
+    t = distribute_tensor(full, mesh, cut, src_data_rank=None)
+    return t if cut == want else t.redistribute(mesh, want)
+
+
 def _dt(shape, dtype, mesh, s: Spec, device) -> DTensor:
     """A DTensor of ``shape`` on the spec ``s``: each rank's shard of a
     zero tensor, cut locally (no exchange). Under ``FakeTensorMode`` nothing
     is allocated."""
-    full = torch.zeros(shape, dtype=dtype, device=device)
-    return distribute_tensor(full, mesh, placements(tuple(s) + (None,) * (len(shape) - len(s)),
-                                                   mesh), src_data_rank=None)
+    return _distribute(torch.zeros(shape, dtype=dtype, device=device), mesh, s)
 
 
 def _device(mesh) -> str:
@@ -281,10 +291,9 @@ def abstract_sharded_cache(plan: CellPlan, mesh) -> PyTree:
 
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """Plain tensors (every rank holding the whole) -> DTensors on
-    ``specs``, each rank keeping its shard."""
-    return _map_specs(lambda t, s: distribute_tensor(
-        t, mesh, placements(tuple(s) + (None,) * (t.dim() - len(s)), mesh),
-        src_data_rank=None), tree, specs)
+    ``specs``, each rank keeping its shard (``_distribute``: on a mesh of
+    one rank the tensors themselves)."""
+    return _map_specs(lambda t, s: _distribute(t, mesh, s), tree, specs)
 
 
 def shard_state(plan: CellPlan, mesh, state: Dict[str, PyTree]) -> Dict[str, PyTree]:
@@ -388,7 +397,9 @@ def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
         new, metrics = step(state, batch)
-        return new, {k: float(v.detach()) for k, v in metrics.items()}
+        # a DTensor metric may be a partial sum over ranks: read it whole
+        return new, {k: float((v.full_tensor() if isinstance(v, DTensor) else v).detach())
+                     for k, v in metrics.items()}
 
     return train_step
 
@@ -441,7 +452,7 @@ def trace_cell(plan: CellPlan, mesh, *, opt_cfg: Optional[adamw.AdamWConfig] = N
     # the kernels behind ctypes take no fake tensor
     plan = dataclasses.replace(plan, attn_impl="plain", scan_impl="plain")
     kind = plan.shape.kind
-    with FakeTensorMode(allow_non_fake_inputs=True), _fake_safe_strided_shards():
+    with FakeTensorMode(allow_non_fake_inputs=True):
         if kind == "train":
             args = (abstract_train_state(plan, mesh), input_specs(plan, mesh))
             fn = train_step_tensors(plan, opt_cfg)
@@ -459,29 +470,3 @@ def trace_cell(plan: CellPlan, mesh, *, opt_cfg: Optional[adamw.AdamWConfig] = N
                     m.track(args)
             out = fn(*args)
     return {"args": args, "out": out}
-
-
-@contextlib.contextmanager
-def _fake_safe_strided_shards():
-    """DTensor's ``_StridedShard`` (a flattened dim split over two mesh axes)
-    computes its shard offsets from a tensor it makes on the spot, which
-    ``FakeTensorMode`` would make fake and unreadable: compute them outside
-    the mode."""
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-    from torch.distributed.tensor import placement_types
-
-    cls = getattr(placement_types, "_StridedShard", None)
-    orig = cls.__dict__.get("local_shard_size_and_offset") if cls is not None else None
-    if orig is None:       # this torch computes no offsets from a tensor
-        yield
-        return
-
-    def outside(*args, **kwargs):
-        with unset_fake_temporarily():
-            return orig(*args, **kwargs)
-
-    cls.local_shard_size_and_offset = outside
-    try:
-        yield
-    finally:
-        cls.local_shard_size_and_offset = orig

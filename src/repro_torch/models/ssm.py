@@ -44,9 +44,33 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x.float()).to(x.dtype)
 
 
-def _ssm_params(x: torch.Tensor, p: Dict[str, torch.Tensor], dt_rank: int, n: int):
-    """x: (B, S, Di) -> dt (B,S,Di) fp32, B_ (B,S,N) fp32, C (B,S,N) fp32."""
-    proj = (x @ p["x_proj"]).float()
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``group`` of each rank's part, in both directions: each
+    rank's part feeds a value every rank uses differently."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def _ssm_params(x: torch.Tensor, p: Dict[str, torch.Tensor], dt_rank: int, n: int,
+                group=None):
+    """x: (B, S, Di) -> dt (B,S,Di) fp32, B_ (B,S,N) fp32, C (B,S,N) fp32.
+    With ``group``, x and the weights hold this rank's channels, and the
+    x_proj product's parts are summed over the group."""
+    proj = x @ p["x_proj"]
+    if group is not None:
+        proj = _AllReduce.apply(proj, group)
+    proj = proj.float()
     dt_in, B_, C = torch.split(proj, [dt_rank, n, n], dim=-1)
     dt = dt_in @ p["dt_proj"].float()
     dt = F.softplus(dt + p["dt_bias"].float()[None, None, :])
@@ -93,23 +117,83 @@ def _scan_outline(x, dt, B_, C, A, D):
     return y.to(x.dtype), h
 
 
-def sharded_scan(x, dt, B_, C, A, D, *, impl: str = "auto", specs):
-    """``selective_scan`` on each rank's shards (``on_shards``): batch on
-    the plan's batch axes and the Di channels, which the scan keeps apart,
-    on ``model`` when it divides them; S and N whole. ``specs`` is
-    ``model._kernel_specs``'s. On fake tensors (the dry run) the shards
-    take ``_scan_outline``."""
-    sx, m = specs((x.shape[-1],))
-    sbc = spec(sx[0], None, None)
+def _channels(xi, z, p, dt_rank: int, n: int, scan, group=None):
+    """The mixer between its two projections, on (B, S, Di) halves xi and z
+    of the input projection: causal conv, SiLU, the selective scan by
+    ``scan``, the gate. Returns (y (B, S, Di), conv state (B, K-1, Di),
+    last scan state (B, Di, N))."""
+    conv_in = xi
+    xi = _silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    dt, B_, C = _ssm_params(xi, p, dt_rank, n, group)
+    A = -torch.exp(p["A_log"].float())
+    y, h_last = scan(xi, dt, B_, C, A, p["D"].float())
+    y = y * _silu(z)  # gate
+    K = p["conv_w"].shape[1]
+    conv = F.pad(conv_in, (0, 0, K - 1, 0))[:, conv_in.shape[1]:]
+    return y, conv, h_last
 
-    def fn(x, dt, B_, C, A, D):
+
+_CHANNEL_PARAMS = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D")
+
+
+def _own_channels(w, n: int, r: int, group):
+    """Rank r's columns ``[xi_r | z_r]`` (Di / n of each half) of the input
+    projection, from the ones it holds as ``in_proj`` split over ``model``,
+    ``(xi | z)[:, 2c r : 2c (r + 1)]`` with c = Di / n. Column block b (c
+    wide) of ``(xi | z)`` is rank b // 2's and rank b mod n needs it, so
+    every rank sends two blocks and receives two (``all_to_all_single``,
+    whose backward sends the gradient back the same way)."""
+    import torch.distributed._functional_collectives as funcol
+
+    c, D = w.shape[1] // 2, w.shape[0]
+    held = sorted((b % n, b - 2 * r) for b in (2 * r, 2 * r + 1))   # by receiver
+    send = torch.cat([w[:, j * c:(j + 1) * c] for _, j in held], dim=1).t().contiguous()
+    out_split, in_split = [0] * n, [0] * n
+    for dst, _ in held:
+        in_split[dst] += c
+    out_split[r // 2] += c                  # xi_r, from the lower rank
+    out_split[(n + r) // 2] += c            # z_r
+    got = funcol.all_to_all_single_autograd(send, out_split, in_split, group)
+    return funcol.wait_tensor(got).reshape(2 * c, D).t()
+
+
+def sharded_mixer(x, p, *, dt_rank: int, ssm_state: int, impl: str = "auto", specs):
+    """``mamba_block``'s work between its two projections, and the input
+    projection, on each rank's shards (``on_shards``): x (B, S, D) with the
+    sequence whole and ``in_proj`` on its split over ``model``; each rank
+    takes its share of the Di channels of both halves of the projection
+    (``_own_channels``) and runs the product, the conv, the scan and the
+    gate on them, the x_proj product's parts summed over ``model``. With
+    Di not divisible by ``model`` every rank computes all channels,
+    ``in_proj`` whole. Returns
+    ``_channels``'s three values. ``specs`` is ``model._kernel_specs``'s.
+    On fake tensors (the dry run) the scan is ``_scan_outline``."""
+    di = p["in_proj"].shape[-1] // 2
+    sx, m = specs((di,))
+    mesh = x.device_mesh
+    n = mesh.size(mesh.mesh_dim_names.index("model")) if m else 1
+    group = mesh.get_group("model") if n > 1 else None
+
+    def scan_fn(x, dt, B_, C, A, D):
         if is_fake(x):
             return _scan_outline(x, dt, B_, C, A, D)
         return selective_scan(x, dt, B_, C, A, D, impl=impl)
 
-    return on_shards(counted_kernel("ssm_scan", fn, scan_flops), (x, dt, B_, C, A, D),
-                     (sx, sx, sbc, sbc, spec(m, None), spec(m)),
-                     (sx, spec(sx[0], m, None)))
+    scan = counted_kernel("ssm_scan", scan_fn, scan_flops)
+
+    def fn(x, w, *channel_params):
+        if n > 1:
+            w = _own_channels(w, n, mesh.get_local_rank("model"), group)
+        xi, z = (x @ w).chunk(2, dim=-1)
+        return _channels(xi, z, dict(zip(_CHANNEL_PARAMS, channel_params)), dt_rank,
+                         ssm_state, scan, group)
+
+    ch = {"conv_w": spec(m, None), "conv_b": spec(m), "x_proj": spec(m, None),
+          "dt_proj": spec(None, m), "dt_bias": spec(m), "A_log": spec(m, None), "D": spec(m)}
+    return on_shards(fn, (x, p["in_proj"]) + tuple(p[k] for k in _CHANNEL_PARAMS),
+                     (spec(sx[0], None, None), spec(None, m))
+                     + tuple(ch[k] for k in _CHANNEL_PARAMS),
+                     (sx, sx, spec(sx[0], m, None)))
 
 
 def mamba_block(
@@ -120,7 +204,7 @@ def mamba_block(
     ssm_state: int,
     impl: str = "auto",
     return_state: bool = False,
-    scan=None,
+    mixer=None,
 ):
     """Full mamba-1 mixer. x: (B, S, D) -> (B, S, D).
 
@@ -128,20 +212,18 @@ def mamba_block(
     position, as ``(y, (conv, ssm))``: ``conv`` (B, K-1, Di) is the last K-1
     positions of the conv input (zeros before the first), ``ssm`` (B, Di, N)
     the scan's last state; both in the layout of a decode cache layer.
-    ``scan`` replaces ``selective_scan`` (a plan's ``sharded_scan``)."""
-    xz = x @ p["in_proj"]
-    xi, z = xz.chunk(2, dim=-1)  # (B,S,Di) each
-    conv_in = xi
-    xi = _silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
-    dt, B_, C = _ssm_params(xi, p, dt_rank, ssm_state)
-    A = -torch.exp(p["A_log"].float())
-    y, h_last = (scan or selective_scan)(xi, dt, B_, C, A, p["D"].float(), impl=impl)
-    y = y * _silu(z)  # gate
+    ``mixer`` replaces the input projection and the work after it up to the
+    output projection (a plan's ``sharded_mixer``)."""
+    if mixer is not None:
+        y, conv, h_last = mixer(x, p)
+    else:
+        xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)  # (B,S,Di) each
+        y, conv, h_last = _channels(
+            xi, z, p, dt_rank, ssm_state,
+            lambda *a: selective_scan(*a, impl=impl))
     out = y @ p["out_proj"]
     if not return_state:
         return out
-    K = p["conv_w"].shape[1]
-    conv = F.pad(conv_in, (0, 0, K - 1, 0))[:, conv_in.shape[1]:]
     return out, (conv, h_last)
 
 

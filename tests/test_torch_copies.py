@@ -7,8 +7,13 @@ import boundary.
   with an interval union, and ``core/cluster.py`` in the two module names
   ``ClusterHarness`` starts its processes by, so that the port's harness
   runs the port's server and coordinator.
-* No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax`` or
-  ``repro``.
+* ``examples/torch_quickstart.py`` and ``examples/torch_wordcount_functions.py``
+  are the framework-free examples with the same rewrite, and with the
+  ``repro.core`` module a subprocess runs and the script's own name in its
+  ``Run:`` line taken to the port's.
+* No module of ``repro_torch``, no ``examples/torch_*.py``, not
+  ``experiments/hillclimb_torch.py`` and not ``chip_smoke.py`` imports
+  ``jax`` or ``repro``.
 * The interval union covers exactly what the per-byte loop covers: random
   blind writes into one block leave the same cache state in both packages.
 """
@@ -41,6 +46,7 @@ COPIED = (
                                  "retry", "nfs_baseline", "cluster")]
     + ["serving/engine.py", "serving/kvcache.py", "data/pipeline.py", "train/elastic.py"]
 )
+EXAMPLES = ("quickstart.py", "wordcount_functions.py")
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 
 
@@ -48,8 +54,17 @@ def _rewritten(path: Path) -> str:
     return _IMPORT.sub(lambda m: f"{m.group(1)}{m.group(2)} repro_torch.", path.read_text())
 
 
-@pytest.mark.parametrize("module", COPIED)
+def _example_rewritten(name: str) -> str:
+    text = _rewritten(ROOT / "examples" / name).replace('"repro.core.', '"repro_torch.core.')
+    return text.replace(f"examples/{name}", f"examples/torch_{name}")
+
+
+@pytest.mark.parametrize("module", COPIED + [f"examples/torch_{n}" for n in EXAMPLES])
 def test_copy_is_the_original_with_imports_rewritten(module):
+    if module.startswith("examples/"):
+        want = _example_rewritten(module[len("examples/torch_"):]).splitlines()
+        assert (ROOT / module).read_text().splitlines() == want, module
+        return
     want = _rewritten(REF / module).splitlines()
     got = (PORT / module).read_text().splitlines()
     hunks = [op for op in difflib.SequenceMatcher(a=want, b=got, autojunk=False).get_opcodes()
@@ -105,7 +120,8 @@ def test_cluster_harness_runs_the_port_modules(tmp_path):
 
 
 def _py_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "experiments" / "hillclimb_torch.py", ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: str(p.relative_to(ROOT)))

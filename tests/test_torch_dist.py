@@ -9,6 +9,11 @@
   DTensor reshapes the products and sums the bias gradients in another
   order, and AdamW's first step is +-lr where a gradient is at rounding
   level). Each new param keeps its placement.
+* On that 1 x 1 mesh ``shard_state`` keeps the state's own tensors (no
+  copy), and the planned train step of the reduced qwen2-1.5b, hymba-1.5b
+  and qwen3-moe-30b-a3b runs no collective at all (DTensor's
+  ``CommDebugMode``; one MoE group is split over no axis). The loss is
+  the unsharded step's (1e-5 relative).
 * ``python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
   --mesh pod`` traces the FULL config on a fake world of 256 and writes an
   OK record, which ``roofline`` and ``perf`` render; ``launch.train
@@ -82,6 +87,36 @@ def test_plan_on_one_device_changes_nothing():
             big = g > 1e-3 * g.max()
             assert torch.allclose(t.full_tensor()[big], _flat(want["params"])[path][big],
                                   rtol=0, atol=1e-6), path
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b"])
+def test_plan_on_one_rank_runs_no_collective(arch):
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = reduced_config(get_config(arch))
+    shape = ShapeCell("t", "train", 32, 2)
+    opt = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=0, decay_steps=10)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    _, wm = R.make_train_step(R.CellPlan(cfg, shape, ce_chunk=16,
+                                         compute_dtype=torch.float32), opt)(state, batch)
+    mesh = make_host_mesh("cpu")
+    try:
+        plan = dataclasses.replace(R.plan_cell(cfg, shape, mesh), ce_chunk=16,
+                                   compute_dtype=torch.float32)
+        state_d = R.shard_state(plan, mesh, state)
+        batch_d = R.shard_batch(plan, mesh, batch)
+        for path, t in _flat(state_d["params"]).items():      # the state itself, no copy
+            assert t.to_local().data_ptr() == _flat(params)[path].data_ptr(), path
+        with CommDebugMode() as comms:
+            got, gm = R.make_train_step(plan, opt)(state_d, batch_d)
+        assert comms.get_total_counts() == 0, comms.get_comm_counts()
+        assert gm["loss"] == pytest.approx(wm["loss"], rel=1e-5)
+        for path, t in _flat(got["params"]).items():
+            assert tuple(t.placements) == tuple(_flat(state_d["params"])[path].placements)
     finally:
         dist.destroy_process_group()
 
