@@ -17,6 +17,11 @@ reference's: 6 N D for a train cell, 2 N_active D for inference, over the
 cell's tokens (``TOKENS``). ``HBM_PER_CHIP`` is the H100's 80 GB.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh pod] [--tag X]
+           [--vs-mesh M] [--vs-tag T]
+
+With ``--vs-mesh`` or ``--vs-tag`` it renders each cell beside the same
+cell of another mesh or tag (``compare``): a hill-climb variant beside its
+baseline, a multipod cell beside its pod one.
 """
 from __future__ import annotations
 
@@ -126,12 +131,46 @@ def markdown(mesh: str = "pod", tag: str = "", root: str = DRYRUN_DIR) -> str:
     return "\n".join(rows)
 
 
+def compare(mesh: str, tag: str, base_mesh: str, base_tag: str,
+            root: str = DRYRUN_DIR) -> str:
+    """Each traced cell of (``mesh``, ``tag``) beside the same arch and
+    shape of (``base_mesh``, ``base_tag``): the roofline seconds, the peak
+    and the argument bytes (params, optimizer state, cache and batch on one
+    device) of both, base first, and their ratios."""
+    base = {(r["arch"], r["shape"]): r for r in load(base_mesh, base_tag, root)}
+    rows = [f"| arch | shape | comp s | mem s | coll s | dominant | peak GiB | args GiB | "
+            f"vs {base_mesh}{'__' + base_tag if base_tag else ''}: coll x | peak x | args x |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
+    for rec in load(mesh, tag, root):
+        a, b = analyze(rec), base.get((rec["arch"], rec["shape"]))
+        ab = analyze(b) if b else None
+        if a is None or ab is None:
+            continue
+        args, bargs = (r["memory"]["argument_bytes"] / 2**30 for r in (rec, b))
+        rows.append(
+            f"| {rec['arch']} | {rec['shape']} | {ab['compute_s']:.3f} -> {a['compute_s']:.3f} | "
+            f"{ab['memory_s']:.3f} -> {a['memory_s']:.3f} | "
+            f"{ab['collective_s']:.3f} -> {a['collective_s']:.3f} | {a['dominant']} | "
+            f"{ab['peak_gib']:.1f} -> {a['peak_gib']:.1f} | {bargs:.2f} -> {args:.2f} | "
+            f"{a['collective_s'] / max(ab['collective_s'], 1e-12):.3f} | "
+            f"{a['peak_gib'] / max(ab['peak_gib'], 1e-12):.3f} | "
+            f"{args / max(bargs, 1e-12):.4f} |")
+    return "\n".join(rows)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="pod")
     ap.add_argument("--tag", default="")
     ap.add_argument("--root", default=DRYRUN_DIR, help="the dry run's records")
+    ap.add_argument("--vs-mesh", default=None,
+                    help="compare each cell with this mesh's record of it")
+    ap.add_argument("--vs-tag", default=None, help="... and this tag's (default: none)")
     args = ap.parse_args()
+    if args.vs_mesh is not None or args.vs_tag is not None:
+        print(compare(args.mesh, args.tag, args.vs_mesh or args.mesh, args.vs_tag or "",
+                      args.root))
+        return
     print(markdown(args.mesh, args.tag, args.root))
     print()
     for rec in load(args.mesh, args.tag, args.root):

@@ -791,8 +791,10 @@ def _cache_attention(cfg, q, k, v, *cache, cur_index: int, names, mesh, seq: int
 
 def _split_decode_attention(q, kc, vc, cur_index: int, lo: int, group, *, window: int):
     """``decode_attention_xla`` over positions [lo, lo + S_l) of the cache on
-    each rank of ``group``: the scores' maximum over the ranks, then the
-    exponentials' sum and the weighted values summed over them."""
+    each rank of ``group``: the scores' maximum and the exponentials' sum
+    over the ranks, then each rank's probabilities, normalized and rounded
+    to the cache's dtype as ``decode_attention_xla`` rounds them, times its
+    values in float32, summed over the ranks and rounded once."""
     import torch.distributed._functional_collectives as funcol
 
     B, _, H, hd = q.shape
@@ -807,16 +809,22 @@ def _split_decode_attention(q, kc, vc, cur_index: int, lo: int, group, *, window
     m = funcol.wait_tensor(funcol.all_reduce(scores.amax(dim=-1, keepdim=True), "max", group))
     p = torch.exp(scores - m)
     den = funcol.wait_tensor(funcol.all_reduce(p.sum(dim=-1, keepdim=True), "sum", group))
-    num = torch.einsum("bkgqs,bskd->bqkgd", p.to(vc.dtype), vc).float()
-    num = funcol.wait_tensor(funcol.all_reduce(num, "sum", group))
-    den = den.permute(0, 3, 1, 2, 4)
-    return (num / den).to(vc.dtype).reshape(B, 1, H, hd)
+    probs = (p / den).to(vc.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), vc.float())
+    out = funcol.wait_tensor(funcol.all_reduce(out, "sum", group))
+    return out.to(vc.dtype).reshape(B, 1, H, hd)
 
 
-def _decode_ssm(cfg, lp, h, cl):
-    """One SSM step; writes the new conv and scan state into ``cl``."""
-    out, conv, hs = ssm_mod.mamba_decode_step(
-        h, lp["ssm"], cl["conv"], cl["ssm"], dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state)
+def _decode_ssm(cfg, lp, h, cl, shardings: ActSharding = NO_SHARDING):
+    """One SSM step; writes the new conv and scan state into ``cl``. Under
+    a plan the step runs on each rank's channels (``sharded_decode_mixer``)."""
+    kw = dict(dt_rank=cfg.dt_rank, ssm_state=cfg.ssm_state)
+    mixer = None
+    if isinstance(h, DTensor):
+        mixer = functools.partial(ssm_mod.sharded_decode_mixer, **kw,
+                                  specs=_kernel_specs(cfg, shardings, h))
+    out, conv, hs = ssm_mod.mamba_decode_step(h, lp["ssm"], cl["conv"], cl["ssm"], **kw,
+                                              mixer=mixer)
     cl["conv"].copy_(conv)
     cl["ssm"].copy_(hs)
     return out
@@ -828,9 +836,9 @@ def _decode_block(cfg, x, lp, cl, cur_index: int, shardings: ActSharding = NO_SH
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         attn_out = _decode_attn(cfg, lp, h, cl, cur_index, shardings)
-        mix = _mix(cfg, lp, attn_out, _decode_ssm(cfg, lp, h, cl))
+        mix = _mix(cfg, lp, attn_out, _decode_ssm(cfg, lp, h, cl, shardings))
     elif cfg.family == "ssm":
-        mix = _decode_ssm(cfg, lp, h, cl)
+        mix = _decode_ssm(cfg, lp, h, cl, shardings)
     else:
         mix = _decode_attn(cfg, lp, h, cl, cur_index, shardings)
     x = shardings.dres(x + mix)
@@ -857,7 +865,8 @@ def decode_step(
     K/V and SSM state into ``cache`` in place and returns it: the cache is
     the largest decode buffer and a copy per step would double it.
     """
-    x = shardings.dres(embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype))
+    rows = spec(shardings.decode_residual[0], None) if shardings.decode_residual else None
+    x = shardings.dres(embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype, rows))
     layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
     for i in range(cfg.num_layers):
         cl = {k: c[i] for k, c in cache.items()}

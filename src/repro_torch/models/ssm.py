@@ -136,6 +136,13 @@ def _channels(xi, z, p, dt_rank: int, n: int, scan, group=None):
 _CHANNEL_PARAMS = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D")
 
 
+def _channel_specs(m):
+    """The specs of ``_CHANNEL_PARAMS`` with their Di channels on ``m``."""
+    ch = {"conv_w": spec(m, None), "conv_b": spec(m), "x_proj": spec(m, None),
+          "dt_proj": spec(None, m), "dt_bias": spec(m), "A_log": spec(m, None), "D": spec(m)}
+    return tuple(ch[k] for k in _CHANNEL_PARAMS)
+
+
 def _own_channels(w, n: int, r: int, group):
     """Rank r's columns ``[xi_r | z_r]`` (Di / n of each half) of the input
     projection, from the ones it holds as ``in_proj`` split over ``model``,
@@ -188,11 +195,8 @@ def sharded_mixer(x, p, *, dt_rank: int, ssm_state: int, impl: str = "auto", spe
         return _channels(xi, z, dict(zip(_CHANNEL_PARAMS, channel_params)), dt_rank,
                          ssm_state, scan, group)
 
-    ch = {"conv_w": spec(m, None), "conv_b": spec(m), "x_proj": spec(m, None),
-          "dt_proj": spec(None, m), "dt_bias": spec(m), "A_log": spec(m, None), "D": spec(m)}
     return on_shards(fn, (x, p["in_proj"]) + tuple(p[k] for k in _CHANNEL_PARAMS),
-                     (spec(sx[0], None, None), spec(None, m))
-                     + tuple(ch[k] for k in _CHANNEL_PARAMS),
+                     (spec(sx[0], None, None), spec(None, m)) + _channel_specs(m),
                      (sx, sx, spec(sx[0], m, None)))
 
 
@@ -230,6 +234,57 @@ def mamba_block(
 # --------------------------------------------------------------------------- #
 # Decode (single-step recurrence)
 # --------------------------------------------------------------------------- #
+def _decode_channels(xi, z, conv_state, ssm_state_v, p, dt_rank: int, n: int, group=None):
+    """One decode step between the two projections, on (B, 1, Di) halves
+    xi and z of the input projection: the conv over the state's last K-1
+    inputs and xi, SiLU, one step of the recurrence, the gate. With
+    ``group`` every tensor holds this rank's channels (``_ssm_params``).
+    Returns (y (B, 1, Di), new conv state, new scan state)."""
+    window = torch.cat([conv_state.to(xi.dtype), xi], dim=1)   # (B,K,Di)
+    conv = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
+    conv = _silu(conv[:, None, :])                              # (B,1,Di)
+    dt, B_, C = _ssm_params(conv, p, dt_rank, n, group)
+    A = -torch.exp(p["A_log"].float())
+    cf = conv.float()[:, 0]
+    Abar = torch.exp(dt[:, 0, :, None] * A[None])              # (B,Di,N)
+    Bx = dt[:, 0, :, None] * B_[:, 0, None, :] * cf[:, :, None]
+    h = Abar * ssm_state_v + Bx                                 # (B,Di,N)
+    y = torch.einsum("bdn,bn->bd", h, C[:, 0]) + cf * p["D"].float()[None]
+    y = y.to(xi.dtype)[:, None, :]
+    return y * _silu(z), window[:, 1:], h
+
+
+def sharded_decode_mixer(x, p, conv_state, ssm_state_v, *, dt_rank: int, ssm_state: int,
+                         specs):
+    """``sharded_mixer`` for one decode step: the input projection and
+    ``_decode_channels`` on each rank's share of the Di channels, the conv
+    and scan states (``conv_state`` (B, K-1, Di), ``ssm_state_v``
+    (B, Di, N), the plan's cache layout) on their split over ``model``.
+    Returns ``_decode_channels``'s three values. torch 2.11's DTensor
+    cannot run the step's ops on the split channels itself (the bias of
+    the dt projection, split, meets the product's partial sums)."""
+    di = p["in_proj"].shape[-1] // 2
+    sx, m = specs((di,))
+    mesh = x.device_mesh
+    n = mesh.size(mesh.mesh_dim_names.index("model")) if m else 1
+    group = mesh.get_group("model") if n > 1 else None
+
+    def fn(x, w, conv_state, ssm_state_v, *channel_params):
+        if n > 1:
+            w = _own_channels(w, n, mesh.get_local_rank("model"), group)
+        xi, z = (x @ w).chunk(2, dim=-1)
+        return _decode_channels(xi, z, conv_state, ssm_state_v,
+                                dict(zip(_CHANNEL_PARAMS, channel_params)), dt_rank,
+                                ssm_state, group)
+
+    b = sx[0]
+    return on_shards(fn, (x, p["in_proj"], conv_state, ssm_state_v)
+                     + tuple(p[k] for k in _CHANNEL_PARAMS),
+                     (spec(b, None, None), spec(None, m), spec(b, None, m), spec(b, m, None))
+                     + _channel_specs(m),
+                     (sx, spec(b, None, m), spec(b, m, None)))
+
+
 def mamba_decode_step(
     x: torch.Tensor,
     p: Dict[str, torch.Tensor],
@@ -238,23 +293,16 @@ def mamba_decode_step(
     *,
     dt_rank: int,
     ssm_state: int,
+    mixer=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, 1, D); conv_state: (B, K-1, Di); ssm_state_v: (B, Di, N).
 
-    Returns (y (B,1,D), new_conv_state, new_ssm_state)."""
-    xz = x @ p["in_proj"]
-    xi, z = xz.chunk(2, dim=-1)                                 # (B,1,Di)
-    window = torch.cat([conv_state.to(xi.dtype), xi], dim=1)   # (B,K,Di)
-    conv = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
-    conv = _silu(conv[:, None, :])                              # (B,1,Di)
-    dt, B_, C = _ssm_params(conv, p, dt_rank, ssm_state)
-    A = -torch.exp(p["A_log"].float())
-    cf = conv.float()[:, 0]
-    Abar = torch.exp(dt[:, 0, :, None] * A[None])              # (B,Di,N)
-    Bx = dt[:, 0, :, None] * B_[:, 0, None, :] * cf[:, :, None]
-    h = Abar * ssm_state_v + Bx                                 # (B,Di,N)
-    y = torch.einsum("bdn,bn->bd", h, C[:, 0]) + cf * p["D"].float()[None]
-    y = y.to(x.dtype)[:, None, :]
-    y = y * _silu(z)
-    out = y @ p["out_proj"]
-    return out, window[:, 1:], h
+    Returns (y (B,1,D), new_conv_state, new_ssm_state). ``mixer`` replaces
+    the input projection and the work after it up to the output projection
+    (a plan's ``sharded_decode_mixer``)."""
+    if mixer is not None:
+        y, conv, h = mixer(x, p, conv_state, ssm_state_v)
+    else:
+        xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)            # (B,1,Di)
+        y, conv, h = _decode_channels(xi, z, conv_state, ssm_state_v, p, dt_rank, ssm_state)
+    return y @ p["out_proj"], conv, h

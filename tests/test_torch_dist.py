@@ -153,67 +153,52 @@ def test_train_full_prints_its_line():
     assert out.strip().endswith("full config traced; attach real devices to execute")
 
 
-DECODE_STEPS = 10
+def test_planned_decode_on_a_gloo_mesh_matches_one_device():
+    """Ten float32 decode steps of the reduced qwen2-1.5b on a 2 x 2 gloo
+    mesh (``launch.ranks``' ``decode_f32`` case: batch over ``data``, the
+    cache's 16 positions over ``model``: positions 8-15 live on the second
+    ``model`` rank, which the eighth step reaches) give the one-device
+    logits within 1e-4 and write the same cache."""
+    from repro_torch.launch import ranks as RK
+
+    for r in RK.run_ranks(("qwen2-1.5b",), timeout=TIMEOUT_S, mesh="pod",
+                          cases=("decode_f32",)):
+        assert "error" not in r, (r["rank"], r.get("error"), r.get("trace"))
+        c, = r["cells"]
+        assert "error" not in c, (c["error"], c["trace"])
+        assert c["logit_err"] <= 1e-4 and c["cache_err"] <= 1e-5, (r["rank"], c)
 
 
-def _decode_rank(rank: int, store: str, out) -> None:
-    from repro_torch.models.runtime import make_decode_step, plan_cell
+def test_planned_decode_runs_the_lookup_and_the_mamba_step_on_shards(monkeypatch):
+    """Queue 3 item 13: torch 2.11's DTensor has no rule for the embedding
+    lookup at token ids split over two mesh axes (``("pod", "data")``) and
+    cannot add the mamba step's split dt bias to its product's partial
+    sums, so a planned decode step runs both on each rank's shards. A
+    decode step of the reduced hymba-1.5b traced on a fake (2, 2, 2) mesh
+    (fake tensors) looks its tokens up at their batch split and takes
+    ``sharded_decode_mixer`` in every layer."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ssm
 
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=4)
+    seen = {"rows": [], "mixer": 0}
+    embed, mixer = M.embed_tokens, ssm.sharded_decode_mixer
+
+    def embed_spy(*args, **kwargs):
+        seen["rows"].append(args[3] if len(args) > 3 else kwargs.get("rows"))
+        return embed(*args, **kwargs)
+
+    def mixer_spy(*args, **kwargs):
+        seen["mixer"] += 1
+        return mixer(*args, **kwargs)
+
+    monkeypatch.setattr(M, "embed_tokens", embed_spy)
+    monkeypatch.setattr(ssm, "sharded_decode_mixer", mixer_spy)
+    cfg = reduced_config(get_config("hymba-1.5b"))
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
     try:
-        from torch.distributed.device_mesh import init_device_mesh
-
-        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        cfg = reduced_config(get_config("qwen2-1.5b"))
-        shape = ShapeCell("d", "decode", 16, 4)
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        tokens = torch.randint(0, cfg.vocab_size, (4, DECODE_STEPS),
-                               generator=torch.Generator().manual_seed(1))
-        plan = dataclasses.replace(plan_cell(cfg, shape, mesh), compute_dtype=torch.float32)
-        one = dataclasses.replace(plan, batch_axes=None, act=M.NO_SHARDING)
-        cache = R.make_decode_cache(one, "cpu")
-        cache_d = R.shard_tree(R.make_decode_cache(one, "cpu"), R.cache_partition_specs(plan),
-                               mesh)
-        specs = M.param_partition_specs(cfg, plan.rules, R.mesh_axis_sizes(mesh))
-        params_d = R.shard_tree(params, specs, mesh)
-        step, step_d = make_decode_step(one), make_decode_step(plan)
-        worst = 0.0
-        for i in range(DECODE_STEPS):
-            tok = tokens[:, i:i + 1]
-            want, cache = step(params, cache, {"tokens": tok, "cur_index": i})
-            got, cache_d = step_d(params_d, cache_d, {"tokens": R.shard_tree(
-                tok, (plan.batch_axes, None), mesh), "cur_index": i})
-            worst = max(worst, float((got.full_tensor() - want).abs().max()))
-        same_cache = all(torch.allclose(cache_d[k].full_tensor(), cache[k], atol=1e-5)
-                         for k in cache)
-        out.put((rank, worst, same_cache))
+        plan = R.plan_cell(cfg, ShapeCell("d", "decode", 16, 4), mesh)
+        R.trace_cell(plan, mesh)
     finally:
         dist.destroy_process_group()
-
-
-def test_planned_decode_on_a_gloo_mesh_matches_one_device(tmp_path):
-    """Ten float32 decode steps of the reduced qwen2-1.5b on a 2 x 2 gloo
-    mesh (batch over ``data``, the cache's 16 positions over ``model``:
-    positions 8-15 live on the second ``model`` rank, which the eighth step
-    reaches) give the one-device logits within 1e-4 and write the same
-    cache."""
-    import multiprocessing
-
-    store = str(tmp_path / "store")     # a file rendezvous: no port to race for
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    procs = [ctx.Process(target=_decode_rank, args=(r, store, out)) for r in range(4)]
-    for p in procs:
-        p.start()
-    try:
-        results = [out.get(timeout=TIMEOUT_S) for _ in procs]
-    finally:
-        for p in procs:
-            p.join(10)
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    for rank, worst, same_cache in results:
-        assert worst <= 1e-4 and same_cache, (rank, worst, same_cache)
+    assert seen["rows"] == [(("pod", "data"), None)]
+    assert seen["mixer"] == cfg.num_layers

@@ -9,7 +9,9 @@
   tensors), every DTensor leaf of ``abstract_sharded_params`` has the global
   shape divided, dim by dim, by the product of its reference spec's axis
   sizes; the per-device parameter, gradient and AdamW bytes of
-  ``abstract_train_state`` are that sum, exactly.
+  ``abstract_train_state`` are that sum, exactly. The same on a fake
+  (2, 16, 16) multipod mesh, where that sum is the pod's and the batch
+  splits over ``pod`` too (H2b).
 * ``plan_cell``: all ten configs x ``SHAPES`` x both meshes give the
   reference's batch axes, ``q_chunk``, ``ce_chunk``, rules and every
   ``ActSharding`` spec; with ``moe_impl="a2a"`` the same ``moe_a2a`` axes.
@@ -80,7 +82,8 @@ def pod_mesh():
 
     mesh = make_production_mesh()
     yield mesh
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _local_shape(shape, s, sizes):
@@ -114,6 +117,60 @@ def test_sharded_state_on_a_fake_pod(arch, pod_mesh):
                       for t in _flat(state).values())
     grads = leaf_bytes           # a gradient is sharded as its param
     assert state_bytes + grads == 4 * leaf_bytes + 4     # params, m, v, grads; int32 count
+
+
+@pytest.fixture(scope="module")
+def multipod_mesh():
+    """The fake (2, 16, 16) mesh: a fake world of 512, which replaces the
+    pod's (the pod's tests run first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=True)
+    yield mesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _spec_bytes(arch, mesh):
+    """One device's float32 parameter bytes under the reference's train
+    rules on ``mesh``'s axis sizes."""
+    sizes = dict(zip(*MESHES[mesh]))
+    shapes = _flat(M.abstract_params(get_config(arch), torch.float32))
+    return sum(math.prod(_local_shape(shapes[path].shape, s, sizes)) * 4
+               for path, s in _ref_specs(arch, JR.train_rules(), sizes).items())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_state_on_a_fake_multipod(arch, multipod_mesh):
+    """H2b: on the fake (2, 16, 16) mesh each leaf's shard is the
+    reference spec's, the state's bytes on one device are params + grads +
+    two AdamW moments, float32, + the count, exactly the sum the reference
+    specs give, and the parameter and optimizer bytes are the pod's (the
+    train rules split params over ``data`` and ``model`` only); the
+    per-device batch is half the pod's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = get_config(arch)
+    sizes = dict(zip(*MESHES["multipod"]))
+    want = _ref_specs(arch, JR.train_rules(), sizes)
+    plan = R.plan_cell(cfg, SHAPES[0], multipod_mesh)
+    assert plan.batch_axes == ("pod", "data")
+    with FakeTensorMode():
+        state = R.abstract_train_state(plan, multipod_mesh)
+        batch = R.input_specs(plan, multipod_mesh)
+    params = _flat(state["params"])
+    assert sorted(params) == sorted(want)
+    for path, t in params.items():
+        assert tuple(t.to_local().shape) == _local_shape(t.shape, want[path], sizes), path
+    leaf_bytes = _spec_bytes(arch, "multipod")
+    assert leaf_bytes == _spec_bytes(arch, "pod")
+    state_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in _flat(state).values())
+    assert state_bytes + leaf_bytes == 4 * leaf_bytes + 4
+    tokens = batch["tokens"].to_local()
+    assert tokens.shape[0] * 2 * 16 == SHAPES[0].global_batch    # pod: / 16
 
 
 def _stand_ins(mesh):
