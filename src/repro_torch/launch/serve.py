@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.bridge import DeviceSnapshot, flat_tensors, params_to_numpy, structure
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced_config
+from repro_torch.core import obs
 from repro_torch.core.backend import BackendService
 from repro_torch.core.client import LocalServer
 from repro_torch.core.posix import FaaSFS
@@ -45,10 +46,25 @@ from repro_torch.core.types import CachePolicy
 from repro_torch.models import model as M
 from repro_torch.serving.engine import SnapshotServer
 from repro_torch.state.checkpoint import dirty_block_indices
+from repro_torch.tracing import span
 
 BLOCK_BYTES = 1 << 18
 ROOT = "/mnt/tsfs/train"
 NAME = "state"
+
+_PUBLISH_US = {phase: obs.REGISTRY.histogram(
+    "faasfs_ml_publish_us", buckets=obs.LATENCY_BUCKETS_US + (30_000_000, 100_000_000),
+    labels=("phase",), unit="us", help="ServeSlice.publish by phase").labels(phase)
+    for phase in ("detect", "to_host", "save", "commit")}
+_PUBLISH_BYTES = obs.REGISTRY.counter(
+    "faasfs_ml_publish_bytes_total", unit="bytes",
+    help="bytes TensorStore.save wrote for ServeSlice.publish").labels()
+_REQUESTS = obs.REGISTRY.counter(
+    "faasfs_ml_serve_requests_total", help="requests ServeSlice served").labels()
+_TOKENS = {kind: obs.REGISTRY.counter(
+    "faasfs_ml_serve_tokens_total", labels=("kind",), unit="tokens",
+    help="prompt tokens prefilled and tokens generated (the first from the prefill)"
+).labels(kind) for kind in ("prompt", "generated")}
 
 
 KV_DTYPES = {"bf16": None, "int8": torch.int8}
@@ -102,8 +118,9 @@ def generate(
     ``torch.int8``), seeded with the prefill's state (``seed_cache``).
     """
     B = prompts.shape[0]
-    logits, pc = M.prefill(cfg, params, prompts, pixel_embeds=pixel_embeds,
-                           compute_dtype=compute_dtype)
+    with span("serve.prefill"):
+        logits, pc = M.prefill(cfg, params, prompts, pixel_embeds=pixel_embeds,
+                               compute_dtype=compute_dtype)
     S = prompts.shape[1] + (pixel_embeds.shape[1] if cfg.vision_prefix
                             and pixel_embeds is not None else 0)
     cache = seed_cache(cfg, pc, B, S + tokens, kv_dtype or compute_dtype,
@@ -111,9 +128,10 @@ def generate(
     tok = logits.argmax(dim=-1, keepdim=True)
     out = [tok]
     for i in range(tokens):
-        step_logits, cache = M.decode_step(cfg, params, cache, tok, S + i,
-                                           compute_dtype=compute_dtype)
-        tok = step_logits.argmax(dim=-1, keepdim=True)
+        with span("serve.decode_step"):
+            step_logits, cache = M.decode_step(cfg, params, cache, tok, S + i,
+                                               compute_dtype=compute_dtype)
+            tok = step_logits.argmax(dim=-1, keepdim=True)
         out.append(tok)
     return logits, torch.cat(out, dim=1)
 
@@ -157,7 +175,17 @@ class PublishInfo:
 
 
 class ServeSlice:
-    """Publisher and snapshot server over one in-process FaaSFS backend."""
+    """Publisher and snapshot server over one in-process FaaSFS backend.
+
+    Counts in ``obs.REGISTRY``: each publish's phases in
+    ``faasfs_ml_publish_us{phase}`` (``detect``: the dirty blocks of a
+    later publish, synchronized; ``to_host``: ``params_to_numpy``;
+    ``save``: ``TensorStore.save`` in the function body's last attempt;
+    ``commit``: the rest of ``FunctionRuntime.invoke``, its begin, commit,
+    install and any retry) and the bytes written in
+    ``faasfs_ml_publish_bytes_total``; each request and its prompt and
+    generated tokens in ``faasfs_ml_serve_requests_total`` and
+    ``faasfs_ml_serve_tokens_total{kind}``."""
 
     def __init__(self, cfg: ModelConfig, *, device: str = "cuda",
                  compute_dtype=torch.bfloat16, tokens: int = 32,
@@ -195,14 +223,23 @@ class ServeSlice:
             _sync(self.device)
         detect = time.perf_counter() - t0
         host = params_to_numpy(tree)
+        t_host = time.perf_counter()
         stats: Dict[str, int] = {}
+        saved = [0.0]   # the last attempt's TensorStore.save
 
         def do_publish(fs: FaaSFS) -> None:
             stats.clear()
+            t = time.perf_counter()
             stats.update(TensorStore(fs, prefix=ROOT).save(
                 NAME, host, block_bytes=self.block_bytes, dirty_blocks=dirty))
+            saved[0] = time.perf_counter() - t
 
         FunctionRuntime(self.boot).invoke(do_publish)
+        invoked = time.perf_counter() - t_host
+        for phase, seconds in (("detect", detect), ("to_host", t_host - t0 - detect),
+                               ("save", saved[0]), ("commit", invoked - saved[0])):
+            _PUBLISH_US[phase].observe(seconds * 1e6)
+        _PUBLISH_BYTES.inc(stats["bytes_written"])
         self.published = params
         if self.server is None:
             self.server = SnapshotServer(LocalServer(self.backend), self._decode_fn,
@@ -221,14 +258,21 @@ class ServeSlice:
         return self.snapshot.get(self.server.params)["params"]
 
     def _decode_fn(self, state, prompts: torch.Tensor):
-        dev = self.snapshot.get(state)
-        if self._cast[0] is not dev:
-            self._cast = (dev, M.cast_params(dev["params"], self.compute_dtype))
-        pixels = (request_pixel_embeds(self.cfg, prompts.shape[0], self.seed, prompts.device)
-                  if self.cfg.vision_prefix else None)
-        return generate(self.cfg, self._cast[1], prompts, self.tokens,
-                        compute_dtype=self.compute_dtype, pixel_embeds=pixels,
-                        kv_dtype=self.kv_dtype)
+        with span("serve.request"):
+            with span("serve.snapshot"):
+                dev = self.snapshot.get(state)
+            if self._cast[0] is not dev:
+                with span("serve.cast"):
+                    self._cast = (dev, M.cast_params(dev["params"], self.compute_dtype))
+            pixels = (request_pixel_embeds(self.cfg, prompts.shape[0], self.seed,
+                                           prompts.device) if self.cfg.vision_prefix else None)
+            logits, toks = generate(self.cfg, self._cast[1], prompts, self.tokens,
+                                    compute_dtype=self.compute_dtype, pixel_embeds=pixels,
+                                    kv_dtype=self.kv_dtype)
+        _REQUESTS.inc()
+        _TOKENS["prompt"].inc(prompts.numel())
+        _TOKENS["generated"].inc(toks.numel())
+        return logits, toks
 
 
 @dataclass

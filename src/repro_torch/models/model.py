@@ -48,6 +48,7 @@ from repro_torch.models.layers import (
     swiglu_mlp,
 )
 from repro_torch.models.moe import moe_ffn, moe_ffn_a2a
+from repro_torch.tracing import span
 
 PyTree = Dict
 
@@ -432,9 +433,13 @@ def _qkv(cfg: ModelConfig, ap: Dict, h: torch.Tensor, positions: torch.Tensor):
 
 def _attn_branch(cfg, lp, h, positions, shardings, *, q_chunk: int, attn_impl: str):
     ap = lp["attn"]
-    q, k, v = _qkv(cfg, ap, h, positions)
-    out = _attention(cfg, q, k, v, shardings, q_chunk=q_chunk, attn_impl=attn_impl)
-    return _merge_heads(out) @ ap["wo"], {"k": k, "v": v}
+    with span("block.qkv"):
+        q, k, v = _qkv(cfg, ap, h, positions)
+    with span("block.attention"):
+        out = _attention(cfg, q, k, v, shardings, q_chunk=q_chunk, attn_impl=attn_impl)
+    with span("block.out"):
+        out = _merge_heads(out) @ ap["wo"]
+    return out, {"k": k, "v": v}
 
 
 def _ssm_branch(cfg, lp, h, shardings, *, scan_impl: str):
@@ -480,30 +485,38 @@ def block_fwd(cfg, x, lp, positions, shardings: ActSharding = NO_SHARDING, *,
     launches a layer) and its decode state, {"k", "v"} for attention,
     {"conv", "ssm"} for the SSM, both for hybrid. Under a plan the layer's
     weights are gathered here (FSDP), again in a remat recompute."""
-    lp = _tree_map(gather_fsdp, lp)
-    # under a plan the branches read the normed residual with its sequence
-    # whole, and their outputs (partial sums over ``model`` after the
-    # row-parallel products) are reduce-scattered back to the residual's
-    # split before the add: no product folds a split sequence into a split
-    # batch (a ``_StridedShard``)
-    h = shardings.whole(rms_norm(x, lp["ln1"], cfg.norm_eps))
-    if cfg.family == "hybrid":
-        attn_out, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
-                                       attn_impl=attn_impl)
-        ssm_out, ssm_state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
-        state.update(ssm_state)
-        mix = _mix(cfg, lp, shardings.res(attn_out), shardings.res(ssm_out))
-    elif cfg.family == "ssm":
-        mix, state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
-    else:
-        mix, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
-                                  attn_impl=attn_impl)
-    x = shardings.res(x + shardings.res(mix))
-    aux = None
-    if cfg.is_moe or cfg.d_ff > 0:
-        y, aux = _ffn_branch(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), shardings)
-        x = shardings.res(x + shardings.res(y))
-    return x, aux, state
+    with span("model.block"):
+        lp = _tree_map(gather_fsdp, lp)
+        # under a plan the branches read the normed residual with its
+        # sequence whole, and their outputs (partial sums over ``model``
+        # after the row-parallel products) are reduce-scattered back to the
+        # residual's split before the add: no product folds a split
+        # sequence into a split batch (a ``_StridedShard``)
+        with span("block.norm"):
+            h = shardings.whole(rms_norm(x, lp["ln1"], cfg.norm_eps))
+        if cfg.family == "hybrid":
+            attn_out, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
+                                           attn_impl=attn_impl)
+            with span("block.ssm"):
+                ssm_out, ssm_state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
+            state.update(ssm_state)
+            with span("block.mix"):
+                mix = _mix(cfg, lp, shardings.res(attn_out), shardings.res(ssm_out))
+        elif cfg.family == "ssm":
+            with span("block.ssm"):
+                mix, state = _ssm_branch(cfg, lp, h, shardings, scan_impl=scan_impl)
+        else:
+            mix, state = _attn_branch(cfg, lp, h, positions, shardings, q_chunk=q_chunk,
+                                      attn_impl=attn_impl)
+        x = shardings.res(x + shardings.res(mix))
+        aux = None
+        if cfg.is_moe or cfg.d_ff > 0:
+            with span("block.norm"):
+                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            with span("block.ffn"):
+                y, aux = _ffn_branch(cfg, lp, h, shardings)
+            x = shardings.res(x + shardings.res(y))
+        return x, aux, state
 
 
 # --------------------------------------------------------------------------- #
@@ -567,18 +580,21 @@ def forward_hidden(
     """
     context_fn = _remat_context(remat_policy)
     rows = spec(shardings.residual[0], None) if shardings.residual else None
-    x = embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype, rows)
-    if cfg.vision_prefix and pixel_embeds is not None:
-        x = torch.cat([pixel_embeds.to(compute_dtype), x], dim=1)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
-    x = shardings.res(x)
-    layers = _tree_map(lambda p: p.to(compute_dtype), params["layers"])
+    with span("model.embed"):
+        x = embed_tokens(gather_fsdp(params["embed"]), tokens, compute_dtype, rows)
+        if cfg.vision_prefix and pixel_embeds is not None:
+            x = torch.cat([pixel_embeds.to(compute_dtype), x], dim=1)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :]
+        x = shardings.res(x)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    with span("model.cast"):
+        layers = _unbind_layers(_tree_map(lambda p: p.to(compute_dtype), params["layers"]),
+                                cfg.num_layers)
     impls = dict(q_chunk=q_chunk, attn_impl=attn_impl, scan_impl=scan_impl)
     wrap = remat and torch.is_grad_enabled() and not collect_cache
     states: Dict[str, List[torch.Tensor]] = {}
-    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _unbind_layers(layers, cfg.num_layers):
+    for lp in layers:
         if wrap:
             x, aux = checkpoint(
                 lambda x_, lp_: block_fwd(cfg, x_, lp_, positions, shardings, **impls)[:2],
@@ -590,7 +606,8 @@ def forward_hidden(
                     states.setdefault(key, []).append(t)
         if aux is not None:
             aux_sum = aux_sum + aux
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    with span("model.head"):
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     caches = {k: torch.stack(v) for k, v in states.items()} if collect_cache else None
     return x, aux_sum, caches
 
@@ -629,16 +646,17 @@ def loss_fn(
         compute_dtype=compute_dtype, q_chunk=q_chunk, remat=remat, remat_policy=remat_policy,
         attn_impl=attn_impl, scan_impl=scan_impl,
     )
-    # the head's products are column-parallel (vocab over ``model``): the
-    # sequence whole, as at a block's products
-    hidden = shardings.whole(hidden)
-    if cfg.vision_prefix and pixels is not None:
-        hidden = hidden[:, cfg.vision_prefix:]
-    head = lm_head_weight(cfg, params).to(compute_dtype)
-    nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],
-                                           chunk=ce_chunk, logits_spec=shardings.logits)
-    loss = nll_sum / torch.clamp(n_tok, min=1.0)
-    total = loss + aux_weight * aux / max(cfg.num_layers, 1)
+    with span("model.head"):
+        # the head's products are column-parallel (vocab over ``model``):
+        # the sequence whole, as at a block's products
+        hidden = shardings.whole(hidden)
+        if cfg.vision_prefix and pixels is not None:
+            hidden = hidden[:, cfg.vision_prefix:]
+        head = lm_head_weight(cfg, params).to(compute_dtype)
+        nll_sum, n_tok = cross_entropy_chunked(hidden, head, batch["labels"], batch["mask"],
+                                               chunk=ce_chunk, logits_spec=shardings.logits)
+        loss = nll_sum / torch.clamp(n_tok, min=1.0)
+        total = loss + aux_weight * aux / max(cfg.num_layers, 1)
     return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
 
 
@@ -669,8 +687,9 @@ def prefill(
         compute_dtype=compute_dtype, q_chunk=q_chunk, collect_cache=True,
         attn_impl=attn_impl, scan_impl=scan_impl,
     )
-    head = lm_head_weight(cfg, params).to(compute_dtype)
-    logits = (shardings.whole(hidden)[:, -1] @ head).float()
+    with span("model.head"):
+        head = lm_head_weight(cfg, params).to(compute_dtype)
+        logits = (shardings.whole(hidden)[:, -1] @ head).float()
     if shardings.kv_cache is not None and "k" in cache:
         cache["k"] = constrain(cache["k"], shardings.kv_cache)
         cache["v"] = constrain(cache["v"], shardings.kv_cache)

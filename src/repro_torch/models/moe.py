@@ -49,8 +49,11 @@ its outputs and routing are ``moe_ffn``'s bit for bit.
 
 The layer's three parts run inside ``record_function`` ranges,
 ``moe_routing``, ``moe_dispatch`` (the scatter and the combine's gather) and
-``moe_experts``, by which ``tools/train_profile.py`` splits a step's device
-time; outside a profiler a range costs a few microseconds of host time.
+``moe_experts``, by which ``launch/perf.py`` and ``tools/train_profile.py``
+split a step's device time. Unlike ``repro_torch.tracing``'s ranges they
+are entered with the profiler off too, at a few microseconds of host time
+each: the dry run (``launch/cost_analysis.py``) reads them as scopes
+without a profiler, and its output must not change.
 """
 from __future__ import annotations
 

@@ -35,11 +35,19 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.core import obs
 from repro_torch.models import model as M
 from repro_torch.models.layers import Spec, batch_axes_for, placements, spec
 from repro_torch.optim import adamw
+from repro_torch.tracing import span
 
 PyTree = Any
+
+_TRAIN_STEPS = obs.REGISTRY.counter(
+    "faasfs_ml_train_steps_total", help="train steps taken (make_train_step)").labels()
+_TRAIN_TOKENS = obs.REGISTRY.counter(
+    "faasfs_ml_train_tokens_total", unit="tokens",
+    help="tokens that took the loss in those steps (the mask's sum)").labels()
 
 
 # --------------------------------------------------------------------------- #
@@ -365,19 +373,21 @@ def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
         ps = [t.detach().requires_grad_(True) for _, t in leaves]
         params = _unflatten([(path, t) for (path, _), t in zip(leaves, ps)])
         with torch.enable_grad(), _sharded(state["params"]):
-            total, metrics = M.loss_fn(
-                cfg, params, b, shardings=plan.act, compute_dtype=plan.compute_dtype,
-                q_chunk=plan.q_chunk, ce_chunk=plan.ce_chunk, remat=plan.remat,
-                remat_policy=plan.remat_policy, attn_impl=plan.attn_impl,
-                scan_impl=plan.scan_impl)
-            grads = torch.autograd.grad(total, ps)
+            with span("train.forward"):
+                total, metrics = M.loss_fn(
+                    cfg, params, b, shardings=plan.act, compute_dtype=plan.compute_dtype,
+                    q_chunk=plan.q_chunk, ce_chunk=plan.ce_chunk, remat=plan.remat,
+                    remat_policy=plan.remat_policy, attn_impl=plan.attn_impl,
+                    scan_impl=plan.scan_impl)
+            with span("train.backward"):
+                grads = torch.autograd.grad(total, ps)
         del params, ps, total
         # under a plan each gradient takes its param's placement (the
         # reduce-scatter of FSDP), so the update stays on each shard
         grads = _unflatten([(path, g.redistribute(t.device_mesh, t.placements)
                              if isinstance(g, DTensor) else g)
                             for ((path, t), g) in zip(leaves, grads)])
-        with _sharded(state["params"]):
+        with _sharded(state["params"]), span("train.adamw"):
             new_params, new_opt, opt_metrics = adamw.adamw_update(
                 opt_cfg, state["params"], grads, state["opt"])
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
@@ -392,14 +402,20 @@ def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
     new state is made of new tensors. ``metrics`` are Python floats: loss,
     aux_loss, tokens, lr and grad_norm. Under a plan the state and batch
     are DTensors (``shard_state``, ``shard_batch``) and the loss runs on
-    the plan's ``act``."""
+    the plan's ``act``. Each step counts itself and its tokens in
+    ``faasfs_ml_train_steps_total`` and ``faasfs_ml_train_tokens_total``."""
     step = train_step_tensors(plan, opt_cfg)
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
-        new, metrics = step(state, batch)
-        # a DTensor metric may be a partial sum over ranks: read it whole
-        return new, {k: float((v.full_tensor() if isinstance(v, DTensor) else v).detach())
-                     for k, v in metrics.items()}
+        with span("train.step"):
+            new, metrics = step(state, batch)
+            with span("train.readback"):
+                # a DTensor metric may be a partial sum over ranks: read it whole
+                out = {k: float((v.full_tensor() if isinstance(v, DTensor) else v).detach())
+                       for k, v in metrics.items()}
+        _TRAIN_STEPS.inc()
+        _TRAIN_TOKENS.inc(int(out["tokens"]))
+        return new, out
 
     return train_step
 

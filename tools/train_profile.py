@@ -19,12 +19,12 @@ After ``--steps`` warm-up steps it prints:
     device time summed by kernel from the trace, grouped (flash forward
     and backward, selective scan forward and backward, matrix products,
     the rest), the share of the step's
-    wall time the device was busy, and the ten kernels that took longest;
-    for an MoE config also the split of the device time into attention (the
-    flash kernels), the MoE layer's routing, dispatch scatter/gather and
-    expert products (``moe_ffn``'s ``record_function`` ranges: a kernel
-    launched inside one, or by the backward of an op launched inside one,
-    belongs to it) and the rest.
+    wall time the device was busy, the split of the device time by the
+    program's innermost range (``launch/perf.py`` ``range_of``: the
+    train, model and block ranges of ``repro_torch.tracing`` and, for an
+    MoE config, ``moe_ffn``'s routing, dispatch and expert ranges; a
+    kernel launched inside one, or by the backward of an op launched
+    inside one, belongs to it), and the ten kernels that took longest.
 
 Needs a CUDA card and ``nvcc``; ``--layers`` cuts the depth
 (``--arch qwen3-moe-30b-a3b --layers 2`` is chip_smoke's MoE training run). ``--src``
@@ -66,7 +66,7 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ShapeCell, get_config
     from repro_torch.data.pipeline import DataConfig, synth_batch
@@ -129,7 +129,6 @@ def main() -> int:
 
     # one whole step under the profiler
     perf = _perf()
-    perf.ranged_blocks(M, record_function)
     batch = synth_batch(dcfg, args.steps + 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -145,10 +144,7 @@ def main() -> int:
           f"({busy / (wall * 1e3):.1%} of the wall time; profiler on)")
     for group, ms in sorted(dev["group"].items(), key=lambda kv: -kv[1]):
         print(f"  {group}: {ms:.2f} ms ({ms / max(busy, 1e-9):.1%} of device time)")
-    if any(part in perf.MOE_PARTS.values() for part in dev["part"]):
-        print("  split by the MoE layer's parts:")
-        for group, ms in sorted(dev["part"].items(), key=lambda kv: -kv[1]):
-            print(f"    {group}: {ms:.2f} ms ({ms / max(busy, 1e-9):.1%} of device time)")
+    print("\n".join(perf.range_lines(dev)))
     print("  longest kernels:")
     for name, ms in sorted(dev["kernel"].items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {ms:9.2f} ms  x{int(dev['count'][name]):<5d} {name[:110]}")
