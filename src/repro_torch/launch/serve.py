@@ -19,8 +19,8 @@ family of ``configs/``:
      prefill K/V (quantized for ``--kv-dtype int8``) and the SSM state, and
      runs ``--tokens`` greedy decode steps;
   3. publish v1, a sparse update, IN PLACE: the block-delta kernel flags
-     the dirty 256 KiB blocks of each leaf and ``TensorStore.save`` writes
-     only those blocks under the same name;
+     the dirty 256 KiB blocks of each leaf and ``PublishStore.publish``
+     writes only those blocks under the same name;
   4. ``refresh()`` and serve again.
 
 ``--reduced`` takes the tiny same-family config of the CPU tests.
@@ -37,15 +37,14 @@ import torch
 from repro_torch.bridge import DeviceSnapshot, flat_tensors, params_to_numpy, structure
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, reduced_config
 from repro_torch.core import obs
-from repro_torch.core.backend import BackendService
 from repro_torch.core.client import LocalServer
 from repro_torch.core.posix import FaaSFS
 from repro_torch.core.runtime import FunctionRuntime
-from repro_torch.core.tensorstate import TensorStore
 from repro_torch.core.types import CachePolicy
 from repro_torch.models import model as M
 from repro_torch.serving.engine import SnapshotServer
 from repro_torch.state.checkpoint import dirty_block_indices
+from repro_torch.state.publish import PublishBackend, PublishStore
 from repro_torch.tracing import span
 
 BLOCK_BYTES = 1 << 18
@@ -58,7 +57,11 @@ _PUBLISH_US = {phase: obs.REGISTRY.histogram(
     for phase in ("detect", "to_host", "save", "commit")}
 _PUBLISH_BYTES = obs.REGISTRY.counter(
     "faasfs_ml_publish_bytes_total", unit="bytes",
-    help="bytes TensorStore.save wrote for ServeSlice.publish").labels()
+    help="bytes PublishStore.publish wrote for ServeSlice.publish").labels()
+_PUBLISH_BLOCKS = {path: obs.REGISTRY.counter(
+    "faasfs_ml_publish_blocks_total", labels=("path",), unit="blocks",
+    help="blocks ServeSlice.publish committed: handed over whole, or patched"
+).labels(path) for path in ("whole", "patched")}
 _REQUESTS = obs.REGISTRY.counter(
     "faasfs_ml_serve_requests_total", help="requests ServeSlice served").labels()
 _TOKENS = {kind: obs.REGISTRY.counter(
@@ -168,7 +171,7 @@ def sparse_update(cfg: ModelConfig, params: Dict, generator: torch.Generator,
 @dataclass
 class PublishInfo:
     version: int                                # commit timestamp
-    stats: Dict[str, int]                       # TensorStore.save stats
+    stats: Dict[str, int]                       # PublishStore.publish stats
     dirty: Optional[Dict[str, List[int]]]       # per-leaf mask (None: full)
     seconds: float
     detect_seconds: float                       # dirty detection, synchronized
@@ -180,10 +183,13 @@ class ServeSlice:
     Counts in ``obs.REGISTRY``: each publish's phases in
     ``faasfs_ml_publish_us{phase}`` (``detect``: the dirty blocks of a
     later publish, synchronized; ``to_host``: ``params_to_numpy``;
-    ``save``: ``TensorStore.save`` in the function body's last attempt;
+    ``save``: ``PublishStore.publish`` in the function body's last attempt;
     ``commit``: the rest of ``FunctionRuntime.invoke``, its begin, commit,
-    install and any retry) and the bytes written in
-    ``faasfs_ml_publish_bytes_total``; each request and its prompt and
+    install and any retry), the bytes written in
+    ``faasfs_ml_publish_bytes_total`` and the blocks in
+    ``faasfs_ml_publish_blocks_total{path}`` (``whole``: built once and
+    handed to the commit as they are; ``patched``: a leaf's ragged last
+    block, or a leaf under one block); each request and its prompt and
     generated tokens in ``faasfs_ml_serve_requests_total`` and
     ``faasfs_ml_serve_tokens_total{kind}``."""
 
@@ -199,7 +205,7 @@ class ServeSlice:
         self.kv_dtype = kv_dtype
         self.seed = seed
         self.block_bytes = block_bytes
-        self.backend = BackendService(block_size=block_bytes, policy=CachePolicy.EAGER)
+        self.backend = PublishBackend(block_bytes, policy=CachePolicy.EAGER)
         self.boot = LocalServer(self.backend)
         self.snapshot = DeviceSnapshot(device, block_bytes)
         self.published: Optional[Dict] = None
@@ -224,22 +230,23 @@ class ServeSlice:
         detect = time.perf_counter() - t0
         host = params_to_numpy(tree)
         t_host = time.perf_counter()
-        stats: Dict[str, int] = {}
-        saved = [0.0]   # the last attempt's TensorStore.save
+        last: Dict[str, Any] = {}   # the function body's last attempt
 
         def do_publish(fs: FaaSFS) -> None:
-            stats.clear()
             t = time.perf_counter()
-            stats.update(TensorStore(fs, prefix=ROOT).save(
-                NAME, host, block_bytes=self.block_bytes, dirty_blocks=dirty))
-            saved[0] = time.perf_counter() - t
+            last["stats"], last["whole"] = PublishStore(fs, prefix=ROOT).publish(
+                NAME, host, dirty_blocks=dirty)
+            last["save"] = time.perf_counter() - t
 
         FunctionRuntime(self.boot).invoke(do_publish)
         invoked = time.perf_counter() - t_host
+        stats = last["stats"]
         for phase, seconds in (("detect", detect), ("to_host", t_host - t0 - detect),
-                               ("save", saved[0]), ("commit", invoked - saved[0])):
+                               ("save", last["save"]), ("commit", invoked - last["save"])):
             _PUBLISH_US[phase].observe(seconds * 1e6)
         _PUBLISH_BYTES.inc(stats["bytes_written"])
+        _PUBLISH_BLOCKS["whole"].inc(last["whole"])
+        _PUBLISH_BLOCKS["patched"].inc(stats["blocks_written"] - last["whole"])
         self.published = params
         if self.server is None:
             self.server = SnapshotServer(LocalServer(self.backend), self._decode_fn,
