@@ -5,7 +5,7 @@ the device time of the ops whose names hold one of ``kernels``. Nothing
 to read where no such op ran."""
 from perfbench import work
 
-FAMILIES = {"flash": work.flash_work, "scan": work.scan_work}
+FAMILIES = {"flash": work.flash_work, "scan": work.scan_work, "experts": work.expert_work}
 
 
 def read(spec, ctx):

@@ -25,7 +25,7 @@ def card():
     return "cuda"
 
 
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
 def test_serve_control_reads_above_the_program_on_the_cpu(family):
     spec = tiny.spec(family, "serve")
     sound = harness.run_cell(spec, 11, 0.2, False, device="cpu", t_start=time.perf_counter(),
@@ -34,7 +34,7 @@ def test_serve_control_reads_above_the_program_on_the_cpu(family):
     assert got["logit_err"] > 3 * sound["logit_err"]["value"]
 
 
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
 def test_train_control_and_fault_read_above_the_program_on_the_cpu(family):
     spec = tiny.spec(family, "train")
     sound = harness.run_cell(spec, 11, 0.2, False, device="cpu", t_start=time.perf_counter(),

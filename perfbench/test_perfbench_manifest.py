@@ -3,6 +3,7 @@ cross references, and that a new configuration, mix, cell or metric is
 found by its name with no file that exists edited."""
 import importlib
 import json
+import math
 import re
 import shutil
 from pathlib import Path
@@ -10,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from perfbench import harness
+from perfbench.reference import moe_decoder
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -64,8 +66,14 @@ PUBLISHED = {"num_layers": "num_hidden_layers", "d_model": "hidden_size",
              "d_ff": "intermediate_size", "vocab_size": "vocab_size", "rope_theta": "rope_theta",
              "norm_eps": "rms_norm_eps", "tie_embeddings": "tie_word_embeddings",
              "ssm_state": "mamba_d_state", "ssm_conv": "mamba_d_conv",
-             "dt_rank": "mamba_dt_rank"}
-NOT_PUBLISHED = {"family", "qkv_bias"}   # architecture, not a key of config.json
+             "dt_rank": "mamba_dt_rank", "num_experts": "num_experts",
+             "num_experts_per_tok": "num_experts_per_tok", "moe_d_ff": "moe_intermediate_size",
+             "router_aux_loss_coef": "router_aux_loss_coef"}
+# model keys worked out from published ones (``published_value``)
+DERIVED = {"sliding_window", "d_inner", "head_dim"}
+# architecture, and a routing rule the file states under ``assumed``: not
+# keys of config.json
+NOT_PUBLISHED = {"family", "qkv_bias", "qk_norm", "capacity_factor"}
 
 
 def published_value(pub, key):
@@ -75,17 +83,99 @@ def published_value(pub, key):
         return pub["mamba_expand"] * pub["hidden_size"]
     if key == "head_dim":
         return pub.get("head_dim", pub["hidden_size"] // pub["num_attention_heads"])
+    if key == "d_ff" and pub.get("num_experts"):
+        # a MoE model's dense FFN width: none where every layer is sparse
+        dense = pub.get("mlp_only_layers") or pub.get("decoder_sparse_step", 1) > 1
+        return pub["intermediate_size"] if dense else 0
     return pub[PUBLISHED[key]]
+
+
+def check_published_keys(entries, root=ROOT):
+    """Each configuration's model keys against its ``published_keys``:
+    every key not reduced is mapped or worked out, and equals its
+    published value."""
+    for c in entries:
+        cfg = json.loads((root / c["file"]).read_text())
+        pub = cfg["published_keys"]
+        for key, value in cfg["model"].items():
+            if key in NOT_PUBLISHED or key in c["reduced"]:
+                continue
+            assert key in PUBLISHED or key in DERIVED, \
+                f"{c['name']}: model key {key!r} is not published, derived or reduced"
+            assert key in DERIVED or PUBLISHED[key] in pub, \
+                f"{c['name']}: {key!r}'s published key {PUBLISHED[key]!r} is missing"
+            assert value == published_value(pub, key), (c["name"], key)
 
 
 def test_model_keys_are_the_published_ones(manifest):
     """Every size the port is given equals its published key, unless the
     manifest lists it as reduced."""
-    for c in manifest["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        for key, value in cfg["model"].items():
-            if key not in NOT_PUBLISHED and key not in c["reduced"]:
-                assert value == published_value(cfg["published_keys"], key), (c["name"], key)
+    check_published_keys(manifest["configs"])
+
+
+# Qwen3-30B-A3B's config.json as recalled (hf Qwen/Qwen3-30B-A3B), and a
+# configuration of it cut to one chip in depth: all 128 experts a layer at
+# published widths, 3 of the 48 layers
+QWEN3_MOE_PUBLISHED = {
+    "num_hidden_layers": 48, "hidden_size": 2048, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "head_dim": 128, "intermediate_size": 6144,
+    "moe_intermediate_size": 768, "num_experts": 128, "num_experts_per_tok": 8,
+    "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "vocab_size": 151936, "rope_theta": 1000000.0, "rms_norm_eps": 1e-06,
+    "tie_word_embeddings": False, "use_sliding_window": False, "sliding_window": None,
+    "router_aux_loss_coef": 0.001, "attention_bias": False}
+QWEN3_MOE_MODEL = {
+    "family": "moe", "num_layers": 3, "d_model": 2048, "num_heads": 32, "num_kv_heads": 4,
+    "head_dim": 128, "d_ff": 0, "vocab_size": 151936, "num_experts": 128,
+    "num_experts_per_tok": 8, "moe_d_ff": 768, "capacity_factor": 16.0,
+    "router_aux_loss_coef": 0.001, "qk_norm": True, "qkv_bias": False,
+    "tie_embeddings": False, "rope_theta": 1000000.0, "norm_eps": 1e-06, "sliding_window": 0}
+
+
+def _add_moe_config(tmp_path, **extra):
+    """A copy of the benchmark with a Qwen3-MoE configuration added as a
+    new file: (its manifest entry, the copy's root, the bytes of every
+    file the copy had before)."""
+    root = tmp_path / "perfbench"
+    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    (root / "configs" / "qwen3-moe-30b-a3b.json").write_text(json.dumps(
+        {"name": "qwen3-moe-30b-a3b", "reference": "moe_decoder", "compute_dtype": "bfloat16",
+         "model": dict(QWEN3_MOE_MODEL, **extra), "published_keys": QWEN3_MOE_PUBLISHED,
+         "assumed": ["capacity_factor E / k: no slot dropped, as published"]}))
+    entry = {"name": "qwen3-moe-30b-a3b", "file": "perfbench/configs/qwen3-moe-30b-a3b.json",
+             "reduced": ["num_layers"]}
+    return entry, tmp_path, before
+
+
+def test_a_moe_configuration_passes_the_key_check(tmp_path):
+    """A MoE configuration at its published keys, with only its depth
+    cut, passes; no file that exists is edited."""
+    entry, root, before = _add_moe_config(tmp_path)
+    check_published_keys([entry], root)
+    per_layer = {}
+    for name, shape, _ in moe_decoder.layout(QWEN3_MOE_MODEL):
+        if name.startswith("layers/"):
+            group = name.split("/")[1]
+            per_layer[group] = per_layer.get(group, 0) + math.prod(shape[1:])
+    # 18.9 M attention, 0.26 M router and 604 M expert parameters a layer
+    assert per_layer["attn"] == 18874368 + 2 * 128
+    assert per_layer["moe"] == 262144 + 603979776
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("extra,named", [({"mystery_width": 7}, "mystery_width"),
+                                         ({"experts_held": 16}, "experts_held"),
+                                         ({"moe_d_ff": 512}, "moe_d_ff"),
+                                         ({"router_aux_loss_coef": 0.01},
+                                          "router_aux_loss_coef")])
+def test_an_unmapped_or_changed_key_fails_by_name(tmp_path, extra, named):
+    """A key in neither map and not reduced, or a mapped key off its
+    published value, fails with an assertion that names it."""
+    entry, root, before = _add_moe_config(tmp_path, **extra)
+    with pytest.raises(AssertionError, match=named):
+        check_published_keys([entry], root)
+    assert all(p.read_bytes() == b for p, b in before.items())
 
 
 def test_per_layer_metrics_report_what_they_move(manifest):

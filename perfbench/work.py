@@ -22,19 +22,30 @@ def attended_pairs(S: int, window: int = 0) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def has_attention(c: Dict) -> bool:
+    """Whether the configuration's layers have attention heads."""
+    return c.get("num_heads", 0) > 0
+
+
 def matmul_params(c: Dict, *, head: bool = True) -> int:
     """Parameters that enter a product for every token: the layers'
     projections, and the output head when ``head``. Embedding lookups,
-    norms, biases, the conv and the scan's A and D are not products."""
+    norms, biases, the conv and the scan's A and D are not products. A
+    ``moe`` layer's router (D x E) enters for every token, its experts'
+    three products for each of the token's k slots (no slot is dropped),
+    and it has no dense FFN."""
     D, L = c["d_model"], c["num_layers"]
     per = 0
-    if c["family"] in ("dense", "hybrid"):
+    if has_attention(c):
         q, kv = c["num_heads"] * c["head_dim"], c["num_kv_heads"] * c["head_dim"]
         per += D * (q + 2 * kv) + q * D
     if c["family"] == "hybrid":
         Di, R, N = c["d_inner"], c["dt_rank"], c["ssm_state"]
         per += D * 2 * Di + Di * (R + 2 * N) + R * Di + Di * D
-    per += 3 * D * c["d_ff"]
+    if c["family"] == "moe":
+        per += D * c["num_experts"] + 3 * D * c["moe_d_ff"] * c["num_experts_per_tok"]
+    else:
+        per += 3 * D * c["d_ff"]
     return L * per + (D * c["vocab_size"] if head else 0)
 
 
@@ -43,7 +54,7 @@ def attention_flops(c: Dict, B: int, S: int) -> Dict[str, int]:
     2 products (Q K^T, P V) and backward 5 (Q K^T again, dV, dP, dK, dQ) of
     2 head_dim FLOPs per kept pair, as the flash kernels compute them.
     ``model_bwd`` is the backward a model-FLOPs count takes, 4 products."""
-    if c["family"] not in ("dense", "hybrid"):
+    if not has_attention(c):
         return {"fwd": 0, "bwd": 0, "model_bwd": 0}
     pairs = B * c["num_heads"] * attended_pairs(S, c.get("sliding_window", 0))
     per = 2 * c["head_dim"] * pairs * c["num_layers"]
@@ -104,6 +115,30 @@ def scan_work(c: Dict, B: int, S: int, direction: str) -> Dict[str, int]:
     if direction == "bwd":
         outs = bsd * BF16 + bsd * F32 + 2 * bsn * F32 + dn * F32 + Di * F32
         return {"flops": L * 19 * bsd * N, "bytes": L * (ins + bsd * BF16 + outs)}
+    raise ValueError(direction)
+
+
+def expert_work(c: Dict, B: int, S: int, direction: str) -> Dict[str, int]:
+    """Least FLOPs and bytes of the experts' products in one direction, all
+    layers, over the B S k (token, slot) rows of B S tokens: every slot is
+    computed, as no token is dropped, so these are the rows the kernels
+    take, not an expectation. Forward 3 products (x Wi, x Wg, act Wo),
+    backward 6 (each one's two input gradients), of 2 D F FLOPs a row
+    each. Bytes as a fused kernel moves them, each operand and result once
+    in bf16: forward reads the rows x and all E experts' Wi, Wg, Wo and
+    writes y; backward reads x, dy and the weights and writes dx and the
+    three weight gradients. The (rows, F) intermediates, the routing and
+    the dispatch are not counted."""
+    if c["family"] != "moe":
+        return {"flops": 0, "bytes": 0}
+    D, F, L = c["d_model"], c["moe_d_ff"], c["num_layers"]
+    rows = B * S * c["num_experts_per_tok"]
+    weights = 3 * c["num_experts"] * D * F * BF16
+    if direction == "fwd":
+        return {"flops": L * 3 * 2 * rows * D * F, "bytes": L * (2 * rows * D * BF16 + weights)}
+    if direction == "bwd":
+        return {"flops": L * 6 * 2 * rows * D * F,
+                "bytes": L * (3 * rows * D * BF16 + 2 * weights)}
     raise ValueError(direction)
 
 
