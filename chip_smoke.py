@@ -1162,7 +1162,8 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg):
     init_s = time.perf_counter() - t0
     opt_cfg = adamw.AdamWConfig(lr_peak=1e-4, warmup_steps=2, decay_steps=100)
     plan = runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512)
-    step = runtime.make_train_step(plan, opt_cfg)
+    # undonated: the third step's input state feeds the plain step after it
+    step = runtime.make_train_step(plan, opt_cfg, donate=False)
     _reset(counters)
     secs, metrics, launches = [], [], []
     kept = None
@@ -1762,9 +1763,10 @@ def train_dots_phase(torch, M, runtime, adamw, synth, counters, cfg):
     batch = synth(cfg, B, S, step=0)
     opt_cfg = adamw.AdamWConfig(lr_peak=1e-4, warmup_steps=2, decay_steps=100)
     fa, fb = counters["flash_attention"], counters["flash_attention_bwd"]
+    # undonated: each policy steps from the same state
     steps = {p: runtime.make_train_step(runtime.CellPlan(
-        cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512, remat_policy=p), opt_cfg)
-        for p in (None, "dots")}
+        cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512, remat_policy=p), opt_cfg,
+        donate=False) for p in (None, "dots")}
     _reset(counters)
     res = {}
     for policy in (None, "dots", None, "dots"):

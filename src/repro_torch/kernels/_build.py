@@ -3,9 +3,9 @@
 Each ``<kernel>/csrc/<name>.cu`` exposes a plain C interface and is compiled
 on its own by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the
 repository root (listed in ``.gitignore``). The library file name carries a
-hash of the source, of the headers (``*.cuh``) in its ``csrc/`` directory and
-of the flags, so an edited source or header is rebuilt and an unchanged one
-is reused. ``--use_fast_math`` is never passed: the kernels
+hash of the source, of the headers (``*.cuh``) in its ``csrc/`` directory, of
+the headers it includes from another kernel's ``csrc/`` and of the flags, so
+an edited source or header is rebuilt and an unchanged one is reused. ``--use_fast_math`` is never passed: the kernels
 rely on IEEE division, ``expf`` and ``rintf`` to match their plain versions.
 
 Nothing here runs at import time; the first wrapper call builds.
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,7 +35,9 @@ SOURCES = {
     "block_delta": KERNELS_DIR / "block_delta" / "csrc" / "block_delta.cu",
     "ssm_scan": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan.cu",
     "ssm_scan_bwd": KERNELS_DIR / "ssm_scan" / "csrc" / "ssm_scan_bwd.cu",
+    "grouped_mm": KERNELS_DIR / "grouped_mm" / "csrc" / "grouped_mm.cu",
 }
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -55,10 +58,18 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _headers(src: Path) -> List[Path]:
+    """The ``*.cuh`` beside ``src``, then the headers it includes by a
+    quoted path from elsewhere (a header shared across kernels)."""
+    local = sorted(src.parent.glob("*.cuh"))
+    shared = [(src.parent / inc).resolve() for inc in _INCLUDE.findall(src.read_text())]
+    return local + [h for h in shared if h.exists() and h.parent != src.parent.resolve()]
+
+
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     digest = hashlib.sha1(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in _headers(src):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"

@@ -31,6 +31,26 @@ semantics:
   weights carry theirs back through the softmax to the router, and the
   load-balance term through the mean of the gates.
 
+**Dropless.** Where a group's capacity takes all its tokens (``capacity(Tg,
+E, k, cf) >= Tg``, which ``capacity_factor >= E / k`` gives) no slot can be
+dropped, and ``_dispatch`` of a plain ``x`` sorts instead of filling the
+capacity buffer: the B S k slots sorted by expert (stably: token-major within an
+expert), each expert's row offsets found on the device
+(``searchsorted``), the rows gathered once, the three expert products run
+as grouped products over the experts' contiguous segments
+(``kernels/grouped_mm``: a hand-written kernel on the card, the plain loop
+over experts elsewhere), and each token's k outputs put back in slot order
+and combined by their weights. It makes no (G, E, C, D) buffer, runs no
+cumulative sum over (slots, E), and computes exactly the routed rows;
+its outputs and gradients are the capacity path's at that capacity, up to
+the products' summation order. The dispatch's gather and the combine are
+each other's inverse permutations, so both gradients are gathers (a
+token's k slot gradients summed in slot order). While ``collect_load`` is
+entered each such layer adds its load ratio (busiest expert's rows over
+the mean) to the collected list, which the train step reads back with its
+other metrics (gauge ``faasfs_ml_moe_load_max_ratio``, the worst layer);
+counter ``faasfs_ml_moe_rows_total`` counts the routed rows from shapes.
+
 Under a plan (DTensor ``x``) ``moe_ffn`` keeps the reference's global
 view: each batch group routes and dispatches its own tokens on its shards,
 the (G, E, C, D) buffer is constrained to ``buf_spec`` (experts on
@@ -48,8 +68,10 @@ their product, so the aux loss is the global batch's. It reuses
 its outputs and routing are ``moe_ffn``'s bit for bit.
 
 The layer's three parts run inside ``record_function`` ranges,
-``moe_routing``, ``moe_dispatch`` (the scatter and the combine's gather) and
-``moe_experts``, by which ``launch/perf.py`` and ``tools/train_profile.py``
+``moe_routing`` (router, softmax, top-k, aux), ``moe_dispatch`` (the
+scatter and the combine's gather; the dropless sort, offsets, gather and
+combine) and ``moe_experts`` (the products and the activation), by
+which ``launch/perf.py`` and ``tools/train_profile.py``
 split a step's device time. Unlike ``repro_torch.tracing``'s ranges they
 are entered with the profiler off too, at a few microseconds of host time
 each: the dry run (``launch/cost_analysis.py``) reads them as scopes
@@ -57,13 +79,46 @@ without a profiler, and its output must not change.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
+from repro_torch.core import obs
+from repro_torch.kernels.grouped_mm.ops import grouped_mm
 from repro_torch.models.layers import Spec, constrain, on_shards, spec
+
+
+_MOE_ROWS = obs.REGISTRY.counter(
+    "faasfs_ml_moe_rows_total", unit="rows",
+    help="routed rows (tokens x top-k) the dropless MoE layer computed, counted from shapes "
+         "in a train step's forward and in inference, never in a remat recompute").labels()
+_loads: contextvars.ContextVar = contextvars.ContextVar("moe_loads", default=None)
+
+
+@contextlib.contextmanager
+def collect_load():
+    """Collects, while entered, each dropless MoE layer's load ratio (its
+    busiest expert's rows over the mean, a float32 device scalar) into the
+    list it yields. A train step enters it around its forward only, so a
+    remat recompute in the backward adds nothing."""
+    sink: List[torch.Tensor] = []
+    token = _loads.set(sink)
+    try:
+        yield sink
+    finally:
+        _loads.reset(token)
+
+
+def _note_load(offs: torch.Tensor, rows: int, E: int) -> None:
+    sink = _loads.get()
+    if sink is not None:
+        sink.append((offs[1:] - offs[:-1]).max().float() * (E / max(rows, 1)))
+    if sink is not None or not torch.is_grad_enabled():
+        _MOE_ROWS.inc(rows)
 
 
 def top_k_routing(router_logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,6 +179,9 @@ def moe_ffn(
     if isinstance(x, DTensor):
         return _moe_sharded(x, router, wi, wg, wo, E, k, C, Tg,
                             token_spec or spec(None, None, None), buf_spec)
+    if C >= Tg:     # no expert is offered more slots than it takes: sort all tokens
+        G, Tg = 1, B * S
+        C = Tg
     xg = x.reshape(G, Tg, D)
 
     with record_function("moe_routing"):
@@ -132,11 +190,88 @@ def moe_ffn(
         aux = load_balance_loss(logits, ids, E)
 
     buf, src, w = _dispatch(xg, weights, ids, E, C)
-    ye = _experts(buf, wi, wg, wo)
-    return _combine(ye, src, w, k).reshape(B, S, D), aux
+    if C >= Tg:
+        y = _combine_sorted(_experts_grouped(buf, wi, wg, wo), src, w, k)
+    else:
+        y = _combine(_experts(buf, wi, wg, wo), src, w, k)
+    return y.reshape(B, S, D), aux
 
 
 def _dispatch(xg, weights, ids, E: int, C: int):
+    """``moe_ffn``'s dispatch of the groups' tokens xg (G, Tg, D), routed
+    to ``ids`` (G, Tg, k) at ``weights``: sorted by expert where the
+    capacity C takes every token (``_dispatch_sorted``; G is 1 there), else
+    into the capacity buffer (``_dispatch_capacity``). Returns (buf, src,
+    w), w (G, Tg*k) each slot's combine weight in slot order."""
+    if C >= xg.shape[1]:
+        return _dispatch_sorted(xg[0], weights[0], ids[0], E)
+    return _dispatch_capacity(xg, weights, ids, E, C)
+
+
+class _Gather(torch.autograd.Function):
+    """``src.index_select(0, index)`` whose gradient is the gather
+    ``g.index_select(0, back)`` summed over runs of ``k`` rows: for a
+    permutation (``k`` 1) ``back`` is its inverse; for the dispatch of
+    tokens to their k slots in expert order, the slots' inverse order, so
+    each token's k slot gradients are summed in slot order, not by
+    atomic adds."""
+
+    @staticmethod
+    def forward(ctx, src, index, back, k: int):
+        ctx.save_for_backward(back)
+        ctx.k = k
+        return src.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (back,) = ctx.saved_tensors
+        g = g.index_select(0, back)
+        if ctx.k > 1:
+            g = g.view(-1, ctx.k, g.shape[-1]).sum(dim=1)
+        return g, None, None, None
+
+
+def _dispatch_sorted(x, weights, ids, E: int):
+    """The dropless dispatch of the tokens x (T, D): the T k slots sorted by
+    expert (stably, so token-major within an expert), each expert's row
+    offsets found on the device, the rows gathered once. Returns ((rows
+    (T k, D) in expert order, offs (E + 1,) int32), (order, its inverse),
+    w (1, T k) the slots' weights in slot order)."""
+    T, D = x.shape
+    k = ids.shape[-1]
+    with record_function("moe_dispatch"):
+        expert, order = torch.sort(ids.reshape(-1), stable=True)
+        offs = torch.searchsorted(expert, torch.arange(E + 1, device=x.device),
+                                  out_int32=True)
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=x.device))
+        xs = _Gather.apply(x, order // k, inv, k)
+    _note_load(offs, T * k, E)
+    return (xs, offs), (order, inv), weights.reshape(1, T * k)
+
+
+def _experts_grouped(buf, wi, wg, wo):
+    """The expert FFNs on the rows sorted by expert, each expert's segment
+    by its own weights (``kernels.grouped_mm``)."""
+    xs, offs = buf
+    with record_function("moe_experts"):
+        h = grouped_mm(xs, wi, offs)
+        g = grouped_mm(xs, wg, offs)
+        h = h * g * torch.sigmoid(g.float()).to(h.dtype)    # h * silu(g)
+        return grouped_mm(h, wo, offs)
+
+
+def _combine_sorted(ys, src, w, k: int):
+    """The sorted rows' outputs ys (T k, D) back in slot order, weighted
+    by w (1, T k) and summed over each token's k slots: (T, D)."""
+    order, inv = src
+    with record_function("moe_dispatch"):
+        ys = _Gather.apply(ys, inv, order, 1)
+        ys = ys * w.reshape(-1, 1).to(ys.dtype)
+        return ys.view(-1, k, ys.shape[-1]).sum(dim=1)
+
+
+def _dispatch_capacity(xg, weights, ids, E: int, C: int):
     """Scatter the kept slots of the groups' tokens xg (G, Tg, D) routed to
     ``ids`` (G, Tg, k) at ``weights`` into the (G, E, C, D) buffer. Returns
     (buf, src, w): src (G, Tg*k) each slot's row in the flattened
@@ -210,7 +345,7 @@ def _moe_sharded(x, router, wi, wg, wo, E: int, k: int, C: int, Tg: int, token_s
         xg = x.reshape(-1, Tg, x.shape[-1])
         logits = xg @ router
         weights, ids = top_k_routing(logits, k)
-        buf, src, w = _dispatch(xg, weights, ids, E, C)
+        buf, src, w = _dispatch_capacity(xg, weights, ids, E, C)
         me, ce = _balance_vectors(logits, ids, E)
         return buf, src, w, me[None], ce[None]
 
@@ -295,7 +430,7 @@ def moe_ffn_a2a(
             for g in mean_groups:
                 me, ce = _AllMean.apply(me, g), _AllMean.apply(ce, g)
             aux = E * (me * ce).sum()
-        send, src, w = _dispatch(xg, weights, ids, E, cap)
+        send, src, w = _dispatch_capacity(xg, weights, ids, E, cap)
         e_loc = E // n_model
         with record_function("moe_exchange"):
             # peer p's slab for our experts lands at rows [p cap, (p+1) cap)

@@ -37,6 +37,7 @@ from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core import obs
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.layers import Spec, batch_axes_for, placements, spec
 from repro_torch.optim import adamw
 from repro_torch.tracing import span
@@ -48,6 +49,10 @@ _TRAIN_STEPS = obs.REGISTRY.counter(
 _TRAIN_TOKENS = obs.REGISTRY.counter(
     "faasfs_ml_train_tokens_total", unit="tokens",
     help="tokens that took the loss in those steps (the mask's sum)").labels()
+_MOE_LOAD = obs.REGISTRY.gauge(
+    "faasfs_ml_moe_load_max_ratio",
+    help="the last train step's busiest expert's rows over the mean rows an expert, "
+         "worst dropless MoE layer").labels()
 
 
 # --------------------------------------------------------------------------- #
@@ -361,9 +366,15 @@ def _sharded(tree) -> contextlib.AbstractContextManager:
     return contextlib.nullcontext()
 
 
-def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
+def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig, *,
+                       donate: Optional[bool] = False):
     """``make_train_step``'s step with its metrics left as tensors (the dry
-    run traces it on fake tensors, which have no values)."""
+    run traces it on fake tensors, which have no values). With ``donate``
+    the update consumes the state it is given (``adamw_update``'s
+    ``donate``): the state's param and moment containers come back empty;
+    None donates a state that lives on an accelerator, not on the CPU.
+    A MoE model's dropless layers add ``moe_load_max_ratio``, the worst
+    layer's busiest expert over the mean (``moe.collect_load``)."""
     cfg = plan.cfg
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
@@ -373,7 +384,7 @@ def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
         ps = [t.detach().requires_grad_(True) for _, t in leaves]
         params = _unflatten([(path, t) for (path, _), t in zip(leaves, ps)])
         with torch.enable_grad(), _sharded(state["params"]):
-            with span("train.forward"):
+            with span("train.forward"), moe.collect_load() as loads:
                 total, metrics = M.loss_fn(
                     cfg, params, b, shardings=plan.act, compute_dtype=plan.compute_dtype,
                     q_chunk=plan.q_chunk, ce_chunk=plan.ce_chunk, remat=plan.remat,
@@ -382,39 +393,58 @@ def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
             with span("train.backward"):
                 grads = torch.autograd.grad(total, ps)
         del params, ps, total
+        if loads:
+            metrics["moe_load_max_ratio"] = torch.stack(loads).max()
         # under a plan each gradient takes its param's placement (the
         # reduce-scatter of FSDP), so the update stays on each shard
         grads = _unflatten([(path, g.redistribute(t.device_mesh, t.placements)
                              if isinstance(g, DTensor) else g)
                             for ((path, t), g) in zip(leaves, grads)])
+        del leaves      # a donating update then holds the last reference
         with _sharded(state["params"]), span("train.adamw"):
             new_params, new_opt, opt_metrics = adamw.adamw_update(
-                opt_cfg, state["params"], grads, state["opt"])
+                opt_cfg, state["params"], grads, state["opt"],
+                donate=dev.type != "cpu" if donate is None else donate)
         return {"params": new_params, "opt": new_opt}, dict(metrics, **opt_metrics)
 
     return train_step
 
 
-def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig):
+def make_train_step(plan: CellPlan, opt_cfg: adamw.AdamWConfig, *,
+                    donate: Optional[bool] = None):
     """``train_step(state, batch) -> ({"params", "opt"}, metrics)``: the
     gradient of ``loss_fn`` over the params by ``torch.autograd.grad``,
-    then ``adamw_update``. The state's tensors are read, never written; the
-    new state is made of new tensors. ``metrics`` are Python floats: loss,
-    aux_loss, tokens, lr and grad_norm. Under a plan the state and batch
-    are DTensors (``shard_state``, ``shard_batch``) and the loss runs on
-    the plan's ``act``. Each step counts itself and its tokens in
-    ``faasfs_ml_train_steps_total`` and ``faasfs_ml_train_tokens_total``."""
-    step = train_step_tensors(plan, opt_cfg)
+    then ``adamw_update``. The new state is made of new tensors, and no
+    tensor of the state given is written. By default (``donate=None``) a
+    state on an accelerator is consumed, as the reference's step donates
+    it: each leaf's old param and moments leave ``state["params"]`` and
+    ``state["opt"]``'s "m" and "v" once its new ones exist, so the step
+    holds one state and one leaf more, not two states on the card. A state
+    on the CPU is left whole unless ``donate=True``: host code reads the
+    state it stepped from, and there the second copy costs host memory. A
+    caller that reads the old state afterwards on the card asks for
+    ``donate=False``; the new state is the same either way.
+    ``metrics`` are Python floats, read back in one transfer: loss,
+    aux_loss, tokens, lr and grad_norm, and ``moe_load_max_ratio`` for a
+    model with dropless MoE layers. Under a plan the state and batch are
+    DTensors (``shard_state``, ``shard_batch``) and the loss runs on the
+    plan's ``act``. Each step counts itself and its tokens in
+    ``faasfs_ml_train_steps_total`` and ``faasfs_ml_train_tokens_total``
+    and sets ``faasfs_ml_moe_load_max_ratio`` where it has that metric."""
+    step = train_step_tensors(plan, opt_cfg, donate=donate)
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
         with span("train.step"):
             new, metrics = step(state, batch)
             with span("train.readback"):
                 # a DTensor metric may be a partial sum over ranks: read it whole
-                out = {k: float((v.full_tensor() if isinstance(v, DTensor) else v).detach())
-                       for k, v in metrics.items()}
+                vals = [(v.full_tensor() if isinstance(v, DTensor) else v).detach()
+                        for v in metrics.values()]
+                out = dict(zip(metrics, torch.stack([v.double() for v in vals]).tolist()))
         _TRAIN_STEPS.inc()
         _TRAIN_TOKENS.inc(int(out["tokens"]))
+        if "moe_load_max_ratio" in out:
+            _MOE_LOAD.set(out["moe_load_max_ratio"])
         return new, out
 
     return train_step

@@ -6,10 +6,19 @@ leaves with ``ndim >= 2``. The optimizer state has the reference's layout,
 ``{"m": tree, "v": tree, "count": int32 scalar}`` with float32 moments, so a
 state moves between the two packages unchanged (``repro_torch.bridge``).
 
-Updates are functional: ``adamw_update`` returns new tensors and leaves its
-inputs as they were, because the transactional trainer compares the new
-state with the old one to find the dirty blocks. The reference computes
-this in plain XLA and has no kernel here; plain torch ops are the port.
+Updates are functional: ``adamw_update`` returns new tensors and writes
+none of its inputs, because the transactional trainer compares the new
+state with the old one to find the dirty blocks. With ``donate`` it also
+drops each leaf's old param, moments and gradient from the containers it
+was handed once that leaf's new ones exist, as the reference's step
+donates its state (``lower_cell(donate=True)``): where the caller holds no
+other reference, the old leaf's memory goes back before the next leaf's
+update, and the update's peak is the new state, the gradients not yet
+used and one leaf's new triple, not old and new state together. The
+values are the same either way. A leaf's update runs over slices of at
+most ``CHUNK`` elements written into its new tensors, so its scratch is
+bounded by a slice, not by the leaf. The reference computes this in plain
+XLA and has no kernel here; plain torch ops are the port.
 """
 from __future__ import annotations
 
@@ -18,8 +27,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 PyTree = Any
+CHUNK = 1 << 25     # elements of a leaf updated at once (128 MiB in float32)
 
 
 @dataclass(frozen=True)
@@ -75,11 +86,16 @@ def adamw_update(
     params: PyTree,
     grads: PyTree,
     opt_state: Dict[str, PyTree],
+    *,
+    donate: bool = False,
 ) -> Tuple[PyTree, Dict[str, PyTree], Dict[str, torch.Tensor]]:
     """One AdamW step. Returns (new params, new state, {"lr", "grad_norm"})
-    as new tensors; ``params``, ``grads`` and ``opt_state`` are not written.
-    Each leaf's temporaries are made in place on its fresh outputs, so the
-    step needs about one leaf of scratch beyond the old and new state."""
+    as new tensors; ``params``, ``grads`` and ``opt_state`` are not
+    written. With ``donate`` each leaf's old param, gradient and moments
+    are deleted from ``params``, ``grads`` and ``opt_state``'s "m" and "v"
+    as soon as its new ones are made, which leaves those containers empty.
+    Each leaf is updated in slices of at most ``CHUNK`` elements, with the
+    temporaries of one slice at a time."""
     count = opt_state["count"] + 1
     lr = lr_schedule(cfg, count)
 
@@ -90,27 +106,53 @@ def adamw_update(
     b2c = 1 - cfg.b2 ** count.float()
 
     def upd(p, g, m, v):
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v_new = torch.square(g).mul_(1 - cfg.b2)
-        v_new.add_(cfg.b2 * v)
-        del g
-        # step = (m / b1c) / (sqrt(v / b2c) + eps)
-        step = torch.div(v_new, b2c).sqrt_().add_(cfg.eps)
-        step = torch.div(m, b1c).div_(step)
-        if p.dim() >= 2:
-            step.add_(cfg.weight_decay * p.float())
-        newp = p.float() - lr * step
-        return newp.to(p.dtype), m, v_new
+        newp, new_m, new_v = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+        for pc, gc, mc, vc, out_p, out_m, out_v in _slices(p, g, m, v, newp, new_m, new_v):
+            gc = gc.float() * scale
+            torch.add(cfg.b1 * mc, (1 - cfg.b1) * gc, out=out_m)
+            torch.square(gc, out=out_v).mul_(1 - cfg.b2).add_(cfg.b2 * vc)
+            del gc
+            # step = (m / b1c) / (sqrt(v / b2c) + eps)
+            step = torch.div(out_v, b2c).sqrt_().add_(cfg.eps)
+            step = torch.div(out_m, b1c).div_(step)
+            if p.dim() >= 2:
+                step.add_(cfg.weight_decay * pc.float())
+            if out_p.dtype == torch.float32:
+                torch.sub(pc, lr * step, out=out_p)
+            else:
+                out_p.copy_(pc.float() - lr * step)
+        return newp, new_m, new_v
 
-    out = _map(upd, params, grads, opt_state["m"], opt_state["v"])
-    new_p, new_m, new_v = _pick(out, 0), _pick(out, 1), _pick(out, 2)
+    new_p, new_m, new_v = _update(upd, params, grads, opt_state["m"], opt_state["v"], donate)
     metrics = {"lr": lr, "grad_norm": gnorm}
     return new_p, {"m": new_m, "v": new_v, "count": count}, metrics
 
 
-def _pick(tree, i: int):
-    """The i-th entry of each (param, m, v) tuple leaf of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+def _slices(*ts: torch.Tensor):
+    """Matching flat slices of at most ``CHUNK`` elements of tensors of one
+    shape; the tensors whole where they are small, DTensors or not
+    contiguous."""
+    n = ts[0].numel()
+    if n <= CHUNK or isinstance(ts[0], DTensor) or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for lo in range(0, n, CHUNK):
+        yield tuple(f[lo:lo + CHUNK] for f in flat)
+
+
+def _update(upd, p, g, m, v, donate: bool):
+    """(new params, new m, new v) trees of ``upd`` over the leaves; with
+    ``donate`` each leaf's old entries leave the four input containers
+    once its new ones are made."""
+    if not isinstance(p, dict):
+        return upd(p, g, m, v)
+    out: Tuple[Dict, Dict, Dict] = ({}, {}, {})
+    for key in list(p):
+        new = _update(upd, p[key], g[key], m[key], v[key], donate)
+        for tree, t in zip(out, new):
+            tree[key] = t
+        if donate:
+            for tree in (p, g, m, v):
+                del tree[key]
+    return out

@@ -119,8 +119,9 @@ class TransactionalTrainer:
             store = TensorStore(fs, prefix=self.root)
             flat = store.load(self.name)
             state = params_from_numpy(unflatten_like(self.template, flat), self.device)
+            old = flat_tensors(state)   # held: a step may consume ``state``
             new_state, metrics = self.train_step(state, batch)
-            old, new = flat_tensors(state), flat_tensors(new_state)
+            new = flat_tensors(new_state)
             dirty = {}
             for lname, t in new.items():
                 idx = dirty_block_indices(t, old[lname], self.block_bytes)

@@ -17,6 +17,13 @@ whose routing agrees.
 
 The first four tests are the twins of the MoE tests of
 ``tests/models/test_moe_attention_units.py``, on the port.
+
+The dropless path (``capacity_factor`` E / k: slots sorted by expert,
+grouped products) is held to the capacity buffer at a capacity that takes
+every token, on skewed routing too (outputs, aux and gradients to F32_REL
+in float32, BF16_REL in bf16), to the benchmark's plain Qwen3-MoE
+reference (``perfbench/reference/moe_decoder.py``), and on meta tensors,
+forward and backward, where no value can be read back to the host.
 """
 import jax
 import jax.numpy as jnp
@@ -252,3 +259,130 @@ def test_routing_and_dispatch_sync_nothing_to_the_host():
                                                    (E, F, D))]
     y, aux = TMoE.moe_ffn(*args, num_experts=E, top_k=k)
     assert y.shape == (B, S, D) and aux.shape == ()
+
+
+# --------------------------------------------------------------------------- #
+# The dropless path (capacity >= tokens a group): slots sorted by expert
+# and grouped products, against the capacity buffer at the same capacity
+# --------------------------------------------------------------------------- #
+def _capacity_ffn(x, router, wi, wg, wo, E, k):
+    """The capacity path at C = every token (nothing dropped): the buffer,
+    the einsum products and the combine, as ``moe_ffn`` ran them before a
+    dropless path existed."""
+    B, S, D = x.shape
+    xg = x.reshape(1, B * S, D)
+    logits = xg @ router
+    weights, ids = TMoE.top_k_routing(logits, k)
+    aux = TMoE.load_balance_loss(logits, ids, E)
+    buf, src, w = TMoE._dispatch_capacity(xg, weights, ids, E, B * S)
+    y = TMoE._combine(TMoE._experts(buf, wi, wg, wo), src, w, k)
+    return y.reshape(B, S, D), aux
+
+
+DROPLESS_CASES = {
+    # B, S, D, E, F, k, router bias (skew: expert 0 and 1 pulled up)
+    "qwen3_ratio": (2, 16, 32, 16, 24, 8, 0.0),
+    "skewed": (2, 24, 16, 8, 12, 2, 3.0),
+    "top1_skewed": (1, 32, 16, 4, 8, 1, 5.0),
+}
+
+
+def _dropless_inputs(case, dtype, seed=5):
+    B, S, D, E, F, k, skew = DROPLESS_CASES[case]
+    x, (router, wi, wg, wo) = _x(B, S, D, seed), _params(E, D, F, seed, scale=0.3)
+    router[:, :2] += skew * x.reshape(-1, D).mean(0)[:, None]
+    return [t.requires_grad_() for t in _t(x, router, wi, wg, wo, dtype=dtype)], E, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(DROPLESS_CASES))
+def test_dropless_matches_capacity_path(case, dtype):
+    """Outputs, aux and the gradients of ``sum(y * r) + aux`` for x, the
+    router, wi, wg and wo: the dropless path at ``capacity_factor`` E / k
+    against the capacity buffer holding every token, to F32_REL in float32
+    (summation order only) and BF16_REL in bf16."""
+    args, E, k = _dropless_inputs(case, dtype)
+    B, S, D = args[0].shape
+    r = torch.from_numpy(_x(B, S, D, 9)).to(dtype)
+    y, aux = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k)
+    (y * r).float().sum().add(aux).backward()
+    got = [y, aux] + [a.grad for a in args]
+    args2 = [a.detach().clone().requires_grad_() for a in args]
+    y2, aux2 = _capacity_ffn(*args2, E, k)
+    (y2 * r).float().sum().add(aux2).backward()
+    want = [y2, aux2] + [a.grad for a in args2]
+    tol = F32_REL if dtype == torch.float32 else BF16_REL
+    for name, g, w in zip(["y", "aux", "x", "router", "wi", "wg", "wo"], got, want):
+        assert _max_rel(g, w.detach().float().numpy()) <= tol, name
+    if case == "skewed":     # the skew loads some experts far above the mean
+        _, ids = TMoE.top_k_routing(args[0].reshape(-1, D) @ args[1], k)
+        assert torch.bincount(ids.reshape(-1), minlength=E).max() > 2 * B * S * k / E
+
+
+def test_dropless_takes_the_groups_together():
+    """A capacity that takes each group's tokens but not the whole batch's
+    (two groups, ``capacity_factor`` E / k) routes the batch as one sorted
+    group: the one-group output, bit for bit."""
+    B, S, D, E, F, k = 4, 8, 16, 4, 32, 2
+    x, (router, wi, wg, wo) = _x(B, S, D, 12), _params(E, D, F, 12)
+    args = _t(x, router, wi, wg, wo)
+    assert TMoE.capacity(B * S // 2, E, k, E / k) < B * S
+    y1, a1 = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k, groups=1)
+    y2, a2 = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k, groups=2)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
+def test_dropless_matches_the_benchmark_reference():
+    """The dropless layer in float32 against the plain Qwen3-MoE
+    reference's MoE branch (``perfbench/reference/moe_decoder.py``: an
+    expert at a time, every slot computed) on seeded random weights:
+    output and load-balance term to F32_REL."""
+    from perfbench.reference import moe_decoder
+
+    B, S, D, E, F, k = 2, 16, 32, 16, 24, 8
+    x, (router, wi, wg, wo) = _x(B, S, D, 11), _params(E, D, F, 11, scale=0.3)
+    xt, rt, wit, wgt, wot = _t(x, router, wi, wg, wo)
+    y, aux = TMoE.moe_ffn(xt, rt, wit, wgt, wot, num_experts=E, top_k=k,
+                          capacity_factor=E / k)
+    c = {"num_experts_per_tok": k}
+    mp = {"router": rt, "wi": wit, "wg": wgt, "wo": wot}
+    want, want_aux = moe_decoder.moe_branch(c, mp, xt, moe_decoder.FP32)
+    assert _max_rel(y, want.numpy()) <= F32_REL
+    assert abs(float(aux) - float(want_aux)) <= AUX_REL * abs(float(want_aux))
+
+
+def test_dropless_collects_load_and_counts_rows():
+    """Inside ``collect_load`` each dropless layer adds its busiest
+    expert's rows over the mean; routed rows are counted in a collected
+    forward and in inference, not in a forward outside both."""
+    B, S, D, E, F, k = 2, 8, 16, 4, 8, 2
+    x, (router, wi, wg, wo) = _x(B, S, D, 3), _params(E, D, F, 3)
+    args = _t(x, router, wi, wg, wo)
+    kw = dict(num_experts=E, top_k=k, capacity_factor=E / k)
+    _, ids = TMoE.top_k_routing(args[0].reshape(-1, D) @ args[1], k)
+    want = float(torch.bincount(ids.reshape(-1), minlength=E).max()) / (B * S * k / E)
+    rows = TMoE._MOE_ROWS.value
+    with TMoE.collect_load() as loads:
+        TMoE.moe_ffn(*args, **kw)
+        TMoE.moe_ffn(*args, **kw)
+    assert len(loads) == 2 and float(loads[0]) == pytest.approx(want)
+    assert TMoE._MOE_ROWS.value == rows + 2 * B * S * k
+    TMoE.moe_ffn(*args, **kw)                       # grad on, nothing collecting
+    assert TMoE._MOE_ROWS.value == rows + 2 * B * S * k
+    with torch.no_grad():
+        TMoE.moe_ffn(*args, **kw)
+    assert TMoE._MOE_ROWS.value == rows + 3 * B * S * k
+
+
+def test_dropless_dispatch_syncs_nothing_to_the_host():
+    """The dropless path (``capacity_factor`` E / k) on meta tensors: the
+    sort, the offsets, the gather, the grouped products' loop and the
+    combine read no value back to the host."""
+    B, S, D, E, F, k = 2, 16, 32, 16, 24, 8
+    args = [torch.empty(s, device="meta", requires_grad=True)
+            for s in ((B, S, D), (D, E), (E, D, F), (E, D, F), (E, F, D))]
+    with TMoE.collect_load() as loads:
+        y, aux = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k)
+    assert y.shape == (B, S, D) and aux.shape == () and loads[0].device.type == "meta"
+    (y.sum() + aux).backward()
+    assert all(a.grad.shape == a.shape for a in args)

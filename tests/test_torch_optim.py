@@ -5,7 +5,8 @@ One update from the same numpy params, gradients and state (count 3, random
 moments) matches the reference to 1e-6 absolute in params and moments: both
 run the same float32 formula, elementwise, in the same order; what differs
 is XLA's fusion of the expression (a reciprocal for a division, a fused
-multiply-add), a few float32 ulps of values of order 1.
+multiply-add), a few float32 ulps of values of order 1. A donating update
+over leaves cut into slices gives the bits of the plain one.
 """
 import jax
 import jax.numpy as jnp
@@ -141,3 +142,26 @@ def test_opt_state_keys_and_dtypes_match_reference():
     assert np.asarray(j["count"]).dtype == np.int32 and np.asarray(j["count"]).shape == ()
     assert jax.tree.structure(jax.tree.map(np.asarray, j)) == \
         jax.tree.structure(_map(lambda x: x.numpy(), t))
+
+
+def test_adamw_donation_and_slices_leave_the_values(monkeypatch):
+    """``adamw_update`` with ``donate`` and with leaves cut into slices of
+    ``CHUNK`` elements gives the bits of one undonated update of whole
+    leaves, and empties the containers it was handed."""
+    g = torch.Generator().manual_seed(0)
+    params = {"a": {"w": torch.randn(37, 11, generator=g)}, "b": torch.randn(50, generator=g)}
+    grads = {"a": {"w": torch.randn(37, 11, generator=g)}, "b": torch.randn(50, generator=g)}
+    cfg = adamw.AdamWConfig(lr_peak=1e-2, warmup_steps=1)
+    opt = adamw.init_opt_state(params)
+    opt["m"] = {"a": {"w": torch.randn(37, 11, generator=g)}, "b": torch.randn(50, generator=g)}
+    want = adamw.adamw_update(cfg, params, grads, opt)
+    copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else t.clone()
+    p2, g2, o2 = copy(params), copy(grads), {"m": copy(opt["m"]), "v": copy(opt["v"]),
+                                             "count": opt["count"]}
+    monkeypatch.setattr(adamw, "CHUNK", 16)       # every leaf here is cut into slices
+    got = adamw.adamw_update(cfg, p2, g2, o2, donate=True)
+    assert p2 == {} and g2 == {} and o2["m"] == {} and o2["v"] == {}
+    for tree_got, tree_want in ((got[0], want[0]), (got[1]["m"], want[1]["m"]),
+                                (got[1]["v"], want[1]["v"])):
+        gf, wf = adamw._leaves(tree_got), adamw._leaves(tree_want)
+        assert len(gf) == len(wf) and all(torch.equal(a, b) for a, b in zip(gf, wf))

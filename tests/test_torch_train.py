@@ -11,7 +11,10 @@ JAX and torch run in one process on the same numpy inputs and weights:
 * ``remat_policy="dots"`` against the reference's ``loss_fn(remat_policy=
   "dots")`` and bit for bit against the port's default remat, with the
   products' outputs kept (no ``mm`` recomputed in the backward);
-* one ``make_train_step`` against the reference's step;
+* one ``make_train_step`` against the reference's step (undonated, so the
+  state it stepped from is checked whole), and a donating step against an
+  undonated one over three steps of the dropless MoE: the same bits, and
+  the donated inputs' containers emptied;
 * the reference's system tests on the port, the trainer's dirty sets,
   checkpoints crossing between the packages, and the launcher.
 
@@ -291,7 +294,7 @@ def test_train_step_f32_matches_reference():
     state = params_from_numpy({"params": host, "opt": jax.tree.map(
         np.asarray, jadamw.init_opt_state(jparams))}, "cpu")
     step = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 32, 2), ce_chunk=16,
-                                    compute_dtype=torch.float32), opt_cfg)
+                                    compute_dtype=torch.float32), opt_cfg, donate=False)
     new, metrics = step(state, batch)
     assert metrics["loss"] == pytest.approx(float(jm["loss"]), rel=1e-5)
     assert isinstance(metrics["loss"], float) and isinstance(metrics["grad_norm"], float)
@@ -303,9 +306,62 @@ def test_train_step_f32_matches_reference():
         np.testing.assert_allclose(t.numpy()[big], jflat[name][big], rtol=0, atol=1e-6,
                                    err_msg=name)
     assert int(new["opt"]["count"]) == int(jopt["count"]) == 1
-    # the old state is not written
+    # the old state is not written (an undonated step keeps it whole)
     assert int(state["opt"]["count"]) == 0
     assert torch.equal(state["params"]["embed"], torch.from_numpy(host["embed"]))
+
+
+def _moe_dropless_setup():
+    """The reduced qwen3-moe at ``capacity_factor`` E / k (the dropless
+    path), its state and a step's worth of batches."""
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b"), capacity_factor=2.0)
+    params = M.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    plan = CellPlan(cfg, ShapeCell("t", "train", 32, 2), ce_chunk=16,
+                    compute_dtype=torch.float32)
+    return cfg, params, plan
+
+
+def _state_of(params):
+    params = {k: (_state_of(v) if isinstance(v, dict) else v.clone()) for k, v in params.items()}
+    return params
+
+
+def _flat_state(state):
+    return flat_tensors({"params": state["params"], "opt": state["opt"]})
+
+
+def test_donated_step_matches_undonated_and_empties_its_input():
+    """Three steps of a donating step against three undonated ones from the
+    same state: bit-identical params, moments, count and metrics; each
+    donated input state comes back with its param and moment containers
+    empty, each undonated one whole and unwritten."""
+    cfg, params, plan = _moe_dropless_setup()
+    opt_cfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=1, decay_steps=10)
+    runs = {}
+    for donate in (True, False):
+        step = make_train_step(plan, opt_cfg, donate=donate)
+        p = _state_of(params)
+        state = {"params": p, "opt": adamw.init_opt_state(p)}
+        metrics = []
+        for i in range(3):
+            before = _flat_state(state) if not donate else None
+            kept = {k: v.clone() for k, v in before.items()} if before else None
+            old = state
+            state, m = step(state, _batch(cfg, step=i))
+            metrics.append(m)
+            if donate:
+                assert old["params"] == {} and old["opt"]["m"] == {} and old["opt"]["v"] == {}
+            else:
+                now = _flat_state(old)
+                assert sorted(now) == sorted(kept)
+                assert all(torch.equal(now[k], kept[k]) for k in kept)
+        runs[donate] = (_flat_state(state), metrics)
+    (got, gm), (want, wm) = runs[True], runs[False]
+    assert sorted(got) == sorted(want) and gm == wm
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 and t.dim() else t
+    for name, t in got.items():
+        assert torch.equal(bits(t), bits(want[name])), name
+    assert "moe_load_max_ratio" in gm[0] and gm[0]["moe_load_max_ratio"] >= 1.0
 
 
 def test_train_step_bf16_matches_reference_step():
@@ -534,6 +590,27 @@ def test_trainer_writes_exactly_the_blocks_it_finds_dirty(tiny_setup):
         assert res.dirty[name] == exact_dirty_blocks(t, before[name], 4096), name
     assert res.blocks_written == sum(len(v) for v in res.dirty.values()) > 0
     assert res.step == 1 and res.dirty["opt/count"] == [0]
+
+
+def test_trainer_finds_the_dirty_blocks_of_a_donating_step(tiny_setup):
+    """The trainer holds the state it read before the step, so a step that
+    consumes its input (``donate=True``, the card's default) still gives
+    it the old values to diff against."""
+    cfg, state0, _, dcfg = tiny_setup
+    step_fn = make_train_step(CellPlan(cfg, ShapeCell("t", "train", 32, 4), q_chunk=0,
+                                       ce_chunk=16),
+                              adamw.AdamWConfig(lr_peak=3e-3, warmup_steps=2, decay_steps=50),
+                              donate=True)
+    trainer = TransactionalTrainer(LocalServer(BackendService(block_size=4096)), step_fn,
+                                   state0, device="cpu", block_bytes=4096)
+    trainer.init(state0)
+    before = flat_tensors(trainer.read_state())
+    res = trainer.step(synth_batch(dcfg, 0))
+    after = flat_tensors(trainer.read_state())
+    from repro_torch.state.checkpoint import exact_dirty_blocks
+    for name, t in after.items():
+        assert res.dirty[name] == exact_dirty_blocks(t, before[name], 4096), name
+    assert res.blocks_written > 0 and res.dirty["opt/count"] == [0]
 
 
 # --------------------------------------------------------------------------- #

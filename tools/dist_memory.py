@@ -149,8 +149,9 @@ def main() -> int:
                                for t in _flat(state).values()) / 2**30,
               "versions": {}}
     try:
+        # undonated throughout: every version steps from the same state
         one, rep = measure(runtime.make_train_step(
-            runtime.CellPlan(cfg, shape, ce_chunk=512), opt_cfg), state, batch)
+            runtime.CellPlan(cfg, shape, ce_chunk=512), opt_cfg, donate=False), state, batch)
         report["versions"]["unsharded"] = rep
         for name, knobs in (("now", (literal, distribute)), ("copy", (literal, copying)),
                             ("shortcut", (shortcut, copying))):
@@ -160,7 +161,8 @@ def main() -> int:
             sbatch = runtime.shard_batch(plan, mesh, batch)
             copied = sum(t.to_local().numel() * t.to_local().element_size()
                          for t in _flat(sstate).values() if t.to_local().data_ptr() not in own)
-            got, rep = measure(runtime.make_train_step(plan, opt_cfg), sstate, sbatch)
+            got, rep = measure(runtime.make_train_step(plan, opt_cfg, donate=False), sstate,
+                               sbatch)
             rep["state_copies_gib"] = copied / 2**30
             rep["params_equal_unsharded"] = all(torch.equal(t, got[k]) for k, t in one.items())
             report["versions"][name] = rep
