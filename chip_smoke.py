@@ -9,7 +9,8 @@ non-zero at the first failure:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the CUDA kernels (flash attention forward and backward, block
-     delta, selective scan forward and backward), one ``nvcc`` per source,
+     delta, selective scan forward and backward, grouped expert products),
+     one ``nvcc`` per source,
      all at once;
   3. flash attention: the kernels against their plain version at the JAX
      kernel tests' cases in float32 (CUDA-core kernel) and bf16
@@ -55,7 +56,16 @@ non-zero at the first failure:
      blocks an SM, waves, registers, spills); kernel (eager and CUDA graph)
      and plain times, and the forward's device time without and with the
      chunk states;
-  7. small inputs: the reduced qwen2-1.5b, hymba-1.5b, falcon-mamba-7b,
+  7. grouped expert products (``grouped_mm``) at a
+     qwen3-moe-30b-a3b.train-4k layer (``GROUPED_SHAPE``: 65,536 rows
+     routed with a skew over 128 experts, two of them empty, d 2,048, F
+     768): for x @ wi and h @ wo the wrapper's forward and autograd
+     backward (three launches) against the plain loop of ``ref.py``, within
+     ``GROUPED_STEPS`` bf16 rounding steps, the empty experts' weight
+     gradients zero; eager and device times of the forward, input and
+     weight gradients against their bounds (operations and bytes), the
+     plain loop (``torch.mm`` a segment) and ``torch._grouped_mm``;
+  8. small inputs: the reduced qwen2-1.5b, hymba-1.5b, falcon-mamba-7b,
      qwen3-moe-30b-a3b, mixtral-8x7b, internvl2-76b (pixel embeddings
      before the prompt) and musicgen-large serving computations in float32
      on the card (kernels) against the same on the CPU (prefill and decode
@@ -63,7 +73,7 @@ non-zero at the first failure:
      cache, see ``SMALL_INT8_REL``), and one float32 train step of each on
      the card (flash and scan kernels in both directions) against the same
      on the CPU (loss, each leaf's gradient, the new params);
-  8. the serving slice at full width, first internvl2-76b with the depth
+  9. the serving slice at full width, first internvl2-76b with the depth
      cut to ``VLM_LAYERS`` = 1 (2.957 G float32 parameters, 4.2 GB
      leaves): publish, refresh, serve 4 x (256 pixel embeddings + 512
      tokens) plus 32 greedy tokens, delta publish, refresh, serve with the
@@ -83,7 +93,7 @@ non-zero at the first failure:
      attention must go to the tensor-core kernel, every block delta to the
      cluster kernel), the seconds of dirty detection, and its results
      checked;
-  9. the training slice: three train steps of qwen2-1.5b, then, after its
+  10. the training slice: three train steps of qwen2-1.5b, then, after its
      trees are freed, of hymba-1.5b, at full width and depth, then of
      qwen3-moe-30b-a3b at full width and 1 layer (aux loss printed, the
      routing flips of step 3 counted), on the card
@@ -96,7 +106,13 @@ non-zero at the first failure:
      scan from the state before the third (no flash or scan launch; loss
      and grad norm compared); one loss-and-gradient pass of internvl2-76b at
      full width and 1 layer (4 x (256 + 512), bf16, remat) on the kernel
-     path against the plain attention; one qwen2-1.5b step at full width and
+     path against the plain attention; two steps of qwen3-moe-30b-a3b at
+     1 layer and ``capacity_factor`` E / k, B 2 x S 4,096 (the dropless
+     path, 65,536 routed rows), through ``make_train_step`` as it donates
+     (``GROUPED_LAUNCHES`` grouped_mm launches a layer, the given state
+     emptied), the first against the same step from a copy of its state
+     with the capacity buffer (loss and grad norm); one qwen2-1.5b step at
+     full width and
      depth with ``remat_policy="dots"`` beside the default remat from the
      same state, twice in turn (seconds, peak device memory, launches; loss,
      grad norm and new params compared); then ``launch/train.run`` for qwen2-1.5b at
@@ -107,7 +123,7 @@ non-zero at the first failure:
      dirty set held against the exact byte compare and ``blocks_written``,
      the restore against the trainer's state and the served params against
      the restore, bit for bit;
-  10. the distribution plan (``dist``) on a 1-rank NCCL group over the
+  11. the distribution plan (``dist``) on a 1-rank NCCL group over the
      card (``launch.mesh.make_host_mesh``): one qwen2-1.5b AdamW step at
      full width and depth (B 4 x S 512, bf16) through ``plan_cell`` with
      DTensor state and batch, against the unsharded step from the same
@@ -121,7 +137,7 @@ non-zero at the first failure:
      and the wall time; then ``moe_ffn_a2a`` at qwen3-moe-30b-a3b's width
      (B 4 x S 512, bf16) against ``moe_ffn``, outputs and routing bit for
      bit (the exchange over one rank is an identity); the phase's seconds;
-  11. the plan on four and on eight ranks (``dist_ranks``): ``python -m
+  12. the plan on four and on eight ranks (``dist_ranks``): ``python -m
      repro_torch.launch.ranks --mesh pod``, started in the background
      after the kernels' timed phases and read after the small checks, runs
      four gloo ranks as CPU processes (the card is not used) on a (2, 2)
@@ -136,7 +152,7 @@ non-zero at the first failure:
      "dots"``, a ``q_chunk``, ``moe_impl="a2a"`` with no slot dropped),
      each against the same computation on plain tensors (``RANKS_TOL``),
      no ``_StridedShard`` placement made; torch's version is printed;
-  12. the examples (``examples``), five subprocesses at once:
+  13. the examples (``examples``), five subprocesses at once:
      ``examples/torch_train_100m.py --steps 2 --ckpt-every 1`` at its full
      default width (109 M parameters, 12 layers, B 8 x S 256) on the card
      (finite losses, the second checkpoint a delta, flash and block-delta
@@ -145,19 +161,20 @@ non-zero at the first failure:
      ``torch_quickstart.py`` and ``torch_wordcount_functions.py`` as they
      are (``EXAMPLE_CHECKS``); the flash times at the example's shape are
      phases 3 and 4's;
-  13. one JSON line of per-kernel numbers, then the result line
+  14. one JSON line of per-kernel numbers, then the result line
      ``{"ok": true, "device": {...}}``. A kernel's ``launches`` is the sum
      over the full-width runs (``launches_by_path`` splits it); its times
      and bound are at the qwen2-1.5b shapes for flash attention, its
      backward and block delta (the flash rows carry every shape of
      ``FLASH_SHAPES`` under ``by_shape``; the other block-delta paths are
-     printed beside them) and at the hymba-1.5b shape for the selective
-     scan and its backward. ``ms``,
+     printed beside them), at the hymba-1.5b shape for the selective
+     scan and its backward, and at the forward x @ wi for the grouped
+     products (every form under ``by_shape``). ``ms``,
      ``plain_ms`` and ``library_ms`` are eager times per call, which
      include the wrappers' host work; ``device_ms`` and
      ``library_device_ms`` are device times of the kernel calls and of
-     SDPA (20 calls, 5 per block-delta leaf, captured in a CUDA graph and
-     replayed).
+     SDPA or ``torch._grouped_mm`` (20 calls, 5 per block-delta leaf,
+     captured in a CUDA graph and replayed).
 
 Without a CUDA device, or outside a checkout, it exits 1 and prints no
 result line. The kernels build into ``build/kernels`` of the checkout.
@@ -309,6 +326,15 @@ TXN_LAYERS = 1
 # expert leaf (1, 128, 2048, 768) 0.81 GB (2 layers until internvl2-76b's
 # 4.2 GB leaves joined the script and took its time).
 MOE_LAYERS = 1
+# The grouped expert products at a qwen3-moe-30b-a3b.train-4k layer: B 2 x
+# S 4,096 x top-8 routed rows, 128 experts, d_model 2,048, moe_d_ff 768.
+GROUPED_SHAPE = (65536, 128, 2048, 768)
+# The kernels and the plain loop each round a float32 product to bf16 once.
+GROUPED_STEPS = 1.0
+# A dropless layer's grouped_mm launches in a train step: its three products
+# in the forward, again in the remat recompute, then an input and a weight
+# gradient of each.
+GROUPED_LAUNCHES = 12
 # The plan on four and eight gloo ranks (``repro_torch.launch.ranks``)
 # against the unsharded steps: the bounds of tests/test_torch_dist_ranks.py
 # (loss and grad norm relative; new params absolute where the gradient is
@@ -978,6 +1004,141 @@ def scan_bwd_phase(torch, scan_ops, selective_scan_ref, selective_scan_bwd_ref):
     return entry
 
 
+def _bf16_steps(torch, got, want) -> float:
+    """The largest difference of ``got`` from ``want`` (bf16 tensors), in
+    bf16 rounding steps of each element of ``want`` (of 1/256 of its
+    largest magnitude, for the elements below that): two roundings to bf16
+    of float32 results that agree to float32's precision are at most one
+    step apart."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().max() / 256)
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return float(((got.float() - w).abs() / step).max())
+
+
+def grouped_mm_phase(torch, gmm_ops, grouped_mm_ref, grouped_mm_wgrad_ref):
+    """The grouped expert products at a qwen3-moe-30b-a3b.train-4k layer
+    (``GROUPED_SHAPE``; rows routed to the experts with a skew, two
+    experts left empty): for both of the layer's product shapes (x @ wi,
+    the same for wg; h @ wo) the ``grouped_mm`` wrapper's forward and its
+    autograd backward (three launches) against ``ref.py`` (``GROUPED_STEPS``
+    bf16 rounding steps), the empty experts' weight gradients zero; eager
+    and device times of the forward, the input gradient and the weight
+    gradient, their bounds, the plain loop (``torch.mm`` a segment,
+    offsets read on the host once) and ``torch._grouped_mm`` where this
+    torch has it."""
+    M, E, D, F = GROUPED_SHAPE
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(29)
+    p = torch.rand(E, generator=g) ** 3
+    p[[5, 77]] = 0
+    counts = torch.multinomial(p / p.sum(), M, replacement=True, generator=g).bincount(
+        minlength=E)
+    host = [0] + counts.cumsum(0).tolist()
+    offs = torch.tensor(host, dtype=torch.int32, device="cuda")
+    ends = offs[1:].contiguous()          # the library's offsets: each group's end
+    empty = [e for e in range(E) if counts[e] == 0]
+    library = getattr(torch, "_grouped_mm", None)
+    gd = torch.Generator(device="cuda").manual_seed(29)
+
+    def loop(a, w, trans=False):
+        out = torch.empty(a.shape[0], w.shape[1] if trans else w.shape[2], dtype=bf,
+                          device="cuda")
+        for e in range(E):
+            torch.mm(a[host[e]:host[e + 1]], w[e].T if trans else w[e],
+                     out=out[host[e]:host[e + 1]])
+        return out
+
+    def wloop(a, b):
+        return torch.stack([a[host[e]:host[e + 1]].T @ b[host[e]:host[e + 1]]
+                            for e in range(E)])
+
+    shapes, errs = {}, {}
+    for tag, (K, N) in (("x@wi", (D, F)), ("h@wo", (F, D))):
+        a = torch.randn(M, K, generator=gd, device="cuda").to(bf)
+        w = (torch.randn(E, K, N, generator=gd, device="cuda") * K ** -0.5).to(bf)
+        dy = torch.randn(M, N, generator=gd, device="cuda").to(bf)
+        ar, wr = a.clone().requires_grad_(), w.clone().requires_grad_()
+        before = gmm_ops.grouped_mm.launches
+        y = gmm_ops.grouped_mm(ar, wr, offs)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        check(gmm_ops.grouped_mm.launches == before + 3,
+              f"grouped_mm {tag}: {gmm_ops.grouped_mm.launches - before} launches for a "
+              f"forward and backward, want 3")
+        want = {"fwd": grouped_mm_ref(a, w, offs),
+                "dgrad": grouped_mm_ref(dy, w, offs, trans_w=True),
+                "wgrad": grouped_mm_wgrad_ref(a, dy, offs)}
+        got = {"fwd": y.detach(), "dgrad": ar.grad, "wgrad": wr.grad}
+        for form in want:
+            errs[f"{form} {tag}"] = (_bf16_steps(torch, got[form], want[form]), float(
+                (got[form].float() - want[form].float()).abs().max()))
+        check(not wr.grad[empty].any(), f"grouped_mm {tag}: an empty expert's weight "
+                                        f"gradient is not zero")
+        del want, got, y, ar, wr
+        torch.cuda.empty_cache()
+        wt = w.transpose(1, 2)
+        forms = {
+            "fwd": (lambda: gmm_ops.grouped_mm(a, w, offs), lambda: loop(a, w),
+                    lambda: library(a, w, offs=ends), (M, K, N)),
+            "dgrad": (lambda: gmm_ops.launch_mm(dy, w, offs, trans_w=True),
+                      lambda: loop(dy, w, True), lambda: library(dy, wt, offs=ends),
+                      (M, N, K)),
+            "wgrad": (lambda: gmm_ops.launch_wgrad(a, dy, offs), lambda: wloop(a, dy),
+                      lambda: library(a.T, dy, offs=ends), (M, K, N)),
+        }
+        for form, (kern, plain, lib, (m, k, n)) in forms.items():
+            name = f"{form} {tag}"
+            flops = 2 * m * k * n
+            nbytes = 2 * (m * k + E * k * n + m * n)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            rec = {"max_abs_err": errs[name][1], "bf16_steps": errs[name][0],
+                   "ms": time_ms(kern), "device_ms": time_ms(kern, graph=True),
+                   "plain_ms": time_ms(plain, iters=3, warmup=1),
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+                   "library_ms": None, "library_device_ms": None}
+            if library is not None:
+                try:
+                    lg = lib()
+                    rec["library_steps"] = _bf16_steps(torch, lg, kern())
+                    rec["library_ms"] = time_ms(lib)
+                    rec["library_device_ms"] = time_ms(lib, graph=True)
+                except (RuntimeError, TypeError) as exc:   # a form this torch's library lacks
+                    rec["library"] = f"{type(exc).__name__}: {exc}"[:160]
+            shapes[name] = rec
+            lib_s = (f"torch._grouped_mm {rec['library_ms']:.4f} ms eager, "
+                     f"{rec['library_device_ms']:.4f} ms device"
+                     if rec["library_ms"] is not None else
+                     f"torch._grouped_mm: {rec.get('library', 'absent')}")
+            phase("grouped_mm", f"{name}: M {m} K {k} N {n}, {E} experts (rows a expert "
+                                f"{int(counts.min())}-{int(counts.max())}, {len(empty)} "
+                                f"empty) bf16: {rec['bf16_steps']:.3f} bf16 steps from the "
+                                f"plain loop (max abs err {rec['max_abs_err']:.3e}); kernel "
+                                f"{rec['ms']:.4f} ms eager, {rec['device_ms']:.4f} ms device "
+                                f"(CUDA graph), {flops / rec['device_ms'] / 1e9:.1f} TFLOP/s; "
+                                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+                                f"{flops / 1e9:.1f} GFLOP take {rec['ops_ms']:.4f} ms, "
+                                f"{nbytes / 1e6:.1f} MB {rec['bytes_ms']:.4f} ms); plain "
+                                f"loop {rec['plain_ms']:.3f} ms; {lib_s}")
+        del a, w, dy, wt
+        torch.cuda.empty_cache()
+    worst = max(e for e, _ in errs.values())
+    check(worst <= GROUPED_STEPS, f"grouped_mm vs the plain loop: {worst:.3f} bf16 steps "
+                                  f"(bound {GROUPED_STEPS}): " + ", ".join(
+                                      f"{k} {e:.3f}" for k, (e, _) in errs.items()))
+    entry = {"name": "grouped_mm", "route": "cuda",
+             "route_detail": "grouped_mm_vm (forward, input gradient), grouped_mm_vk "
+                             "(weight gradient)",
+             "source": "src/repro_torch/kernels/grouped_mm/csrc/grouped_mm.cu",
+             "replaces": None}
+    first = shapes["fwd x@wi"]
+    entry.update({k: first[k] for k in SHAPE_KEYS})
+    entry["by_shape"] = {tag: {k: e[k] for k in SHAPE_KEYS} for tag, e in shapes.items()}
+    return entry
+
+
 def forced_decode(torch, serve, M, cfg, params, prompts, pixels, forced, kv_dtype,
                   compute_dtype):
     """Prefill ``prompts`` (after ``pixels`` for a vlm config), seed a cache
@@ -1237,6 +1398,91 @@ def train_full_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg):
                    f"{TRAIN_LOSS_REL}), grad norm {m_k['grad_norm']:.6f} vs "
                    f"{m_plain['grad_norm']:.6f} (rel {r_norm:.2e}, bound {TRAIN_GNORM_REL}); "
                    f"plain step {plain_s:.3f} s{routing}")
+    return path_launches
+
+
+def train_dropless_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg):
+    """One layer of ``cfg`` at ``capacity_factor`` E / k (dropless) on
+    B 2 x S 4,096, the routed rows of a qwen3-moe-30b-a3b.train-4k layer:
+    two steps of ``make_train_step`` as a caller gets it (donating: the
+    second steps from the state the first returned), ``GROUPED_LAUNCHES``
+    ``grouped_mm`` launches a layer each, the first's input containers
+    emptied; then the first step again from a copy of its state with the
+    capacity buffer in place of the sort (``moe.takes`` answering no),
+    which launches no grouped product: loss and grad norm compared."""
+    B, S = 2, 4096
+    gm = counters["grouped_mm"]
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    del params
+    kept = _tree(state, torch.clone)
+    opt_cfg = adamw.AdamWConfig(lr_peak=1e-4, warmup_steps=2, decay_steps=100)
+    step = runtime.make_train_step(
+        runtime.CellPlan(cfg, runtime.ShapeCell("t", "train", S, B), ce_chunk=512), opt_cfg)
+    batches = [synth(cfg, B, S, step=i) for i in range(2)]
+    L = cfg.num_layers
+    _reset(counters)
+    secs, peaks, metrics, launches = [], [], [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        before = gm.launches
+        given = state
+        t0 = time.perf_counter()
+        with _routing_recorded(moe_mod) as ids_sorted:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        launches.append(gm.launches - before)
+        metrics.append(m)
+        check(given["params"] == {} and given["opt"]["m"] == {} and given["opt"]["v"] == {},
+              f"dropless step {i + 1}: the state it was given was not donated")
+        if i == 0:
+            ids_first = ids_sorted
+        del given
+    path_launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches == [GROUPED_LAUNCHES * L] * 2,
+          f"dropless steps: grouped_mm launches {launches}, want {GROUPED_LAUNCHES * L} each")
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"dropless step metrics: {m}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    real = moe_mod.takes
+    moe_mod.takes = lambda t: False
+    try:
+        before = gm.launches
+        t0 = time.perf_counter()
+        with _routing_recorded(moe_mod) as ids_buf:
+            new, m_buf = step(kept, batches[0])
+        torch.cuda.synchronize()
+        buf_s = time.perf_counter() - t0
+    finally:
+        moe_mod.takes = real
+    buf_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(gm.launches == before, "the capacity-buffer step launched grouped_mm")
+    del new, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = metrics[0]
+    flips = _routing_flips(ids_first[:L], ids_buf[:L])
+    r_loss = abs(m0["loss"] - m_buf["loss"]) / abs(m_buf["loss"])
+    r_norm = abs(m0["grad_norm"] - m_buf["grad_norm"]) / abs(m_buf["grad_norm"])
+    check(r_loss <= TRAIN_LOSS_REL and r_norm <= TRAIN_GNORM_REL,
+          f"dropless step vs the capacity buffer: loss rel {r_loss}, grad norm rel {r_norm}")
+    phase("train", f"{cfg.name} dropless (capacity_factor {cfg.capacity_factor:g}), {L} layer, "
+                   f"B{B} x S{S} ({B * S * cfg.num_experts_per_tok} routed rows a layer), bf16, "
+                   f"remat, donating make_train_step: step seconds {_join(secs)} (the first "
+                   f"cold), peak {_join(peaks, '.2f')} GiB, grouped_mm launches {launches} "
+                   f"({GROUPED_LAUNCHES} a layer), inputs donated; expert load max/mean "
+                   f"{_join(m['moe_load_max_ratio'] for m in metrics)}; step 1 vs the capacity "
+                   f"buffer from the same state: loss {m0['loss']:.6f} vs {m_buf['loss']:.6f} "
+                   f"(rel {r_loss:.2e}, bound {TRAIN_LOSS_REL}), grad norm "
+                   f"{m0['grad_norm']:.6f} vs {m_buf['grad_norm']:.6f} (rel {r_norm:.2e}, "
+                   f"bound {TRAIN_GNORM_REL}), routing slots whose expert differs {flips[0]} of "
+                   f"{flips[1]}; buffer step {buf_s:.3f} s (cold), peak {buf_peak:.2f} GiB")
     return path_launches
 
 
@@ -1854,7 +2100,8 @@ def dist_phase(torch, M, runtime, adamw, synth, counters, moe_mod, cfg, moe_cfg)
         del params
         batch = synth(cfg, B, S, step=0)
         plan = runtime.plan_cell(cfg, shape, mesh)
-        step = runtime.make_train_step(plan, opt_cfg)
+        # undonated: three steps from the same sharded state below
+        step = runtime.make_train_step(plan, opt_cfg, donate=False)
         # the DTensor state's local tensors are views of the state's
         sstate, sbatch = runtime.shard_state(plan, mesh, state), runtime.shard_batch(
             plan, mesh, batch)
@@ -2143,7 +2390,7 @@ def examples_phase() -> dict:
         phase("examples", f"{name}: {outs[name].strip().splitlines()[-1][:200]}")
     phase("examples", f"five examples at once, {wall:.1f} s")
     return {"flash_attention": fa, "flash_attention_bwd": fb, "block_delta": bd,
-            "ssm_scan": 0, "ssm_scan_bwd": 0}
+            "ssm_scan": 0, "ssm_scan_bwd": 0, "grouped_mm": 0}
 
 
 def _free_host_and_device(torch) -> None:
@@ -2184,6 +2431,8 @@ def main() -> int:
     from repro_torch.kernels.block_delta.ref import block_delta_flat_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.grouped_mm import ops as gmm_ops
+    from repro_torch.kernels.grouped_mm.ref import grouped_mm_ref, grouped_mm_wgrad_ref
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan.ref import (selective_scan_bwd_ref, selective_scan_ref,
                                                   ssm_scan_ref)
@@ -2212,7 +2461,7 @@ def main() -> int:
     counters = {"flash_attention": fa_ops.flash_attention,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd,
                 "block_delta": bd_ops.block_delta, "ssm_scan": scan_ops.selective_scan_fwd,
-                "ssm_scan_bwd": scan_ops.selective_scan_bwd}
+                "ssm_scan_bwd": scan_ops.selective_scan_bwd, "grouped_mm": gmm_ops.grouped_mm}
     paths = [get_config("qwen2-1.5b"), get_config("hymba-1.5b")]
     moe = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=MOE_LAYERS)
     moe_tag = f"{moe.name} ({MOE_LAYERS} layer)"
@@ -2245,6 +2494,8 @@ def main() -> int:
         entries["ssm_scan"] = scan_phase(torch, scan_ops, ssm_scan_ref, selective_scan_ref)
         entries["ssm_scan_bwd"] = scan_bwd_phase(torch, scan_ops, selective_scan_ref,
                                                  selective_scan_bwd_ref)
+        entries["grouped_mm"] = grouped_mm_phase(torch, gmm_ops, grouped_mm_ref,
+                                                 grouped_mm_wgrad_ref)
         small = [reduced_config(get_config(name)) for name in (
             "qwen2-1.5b", "hymba-1.5b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
             "internvl2-76b", "musicgen-large")]
@@ -2274,6 +2525,9 @@ def main() -> int:
             _free_host_and_device(torch)
             by_path["train " + tag] = train_full_phase(
                 torch, M, runtime, adamw, synth, counters, moe_mod, cfg)
+        _free_host_and_device(torch)
+        by_path["train dropless " + moe_tag] = train_dropless_phase(
+            torch, M, runtime, adamw, synth, counters, moe_mod, moe)
         _free_host_and_device(torch)
         by_path["train " + vlm_tag] = vlm_train_phase(torch, M, runtime, synth, counters, vlm)
         _free_host_and_device(torch)

@@ -6,9 +6,11 @@ and (E, K, N) weights -> (M, N). bf16 tensors on the card go through
 ``GroupedMMFn``: its forward and input gradient launch ``grouped_mm_vm``
 (variable M; the input gradient reads w transposed), its weight gradient
 ``grouped_mm_vk`` (variable K), and ``offs`` (int32) is read on the device
-only. Every other tensor (the CPU, meta and fake tensors, other types)
-takes the plain loop over experts of ``ref.py``, which autograd
-differentiates. ``grouped_mm.launches`` counts kernel launches.
+only. CPU, meta and fake tensors take the plain loop over experts of
+``ref.py``, which autograd differentiates; a card tensor of another type
+raises (the loop would multiply every row by every expert on the card).
+``takes`` says whether ``grouped_mm`` takes a tensor, for a caller that
+has another route. ``grouped_mm.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -100,17 +102,26 @@ class GroupedMMFn(torch.autograd.Function):
         return dx, dw, None
 
 
-def _kernel_route(*ts: torch.Tensor) -> bool:
-    return all(t.is_cuda and not is_fake(t) and t.dtype == torch.bfloat16 for t in ts)
+def _plain_route(t: torch.Tensor) -> bool:
+    return not t.is_cuda or is_fake(t)
+
+
+def takes(t: torch.Tensor) -> bool:
+    """Whether ``grouped_mm`` takes ``t`` (rows or weights): a CPU, meta or
+    fake tensor, or a bf16 tensor on the card."""
+    return _plain_route(t) or t.dtype == torch.bfloat16
 
 
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     """Rows x (M, K) sorted by expert, weights w (E, K, N), offs (E + 1,)
     int32 with offs[0] = 0 and offs[E] = M -> (M, N), each row times its
     expert's weights."""
-    if _kernel_route(x, w):
-        return GroupedMMFn.apply(x, w, offs)
-    return grouped_mm_ref(x, w, offs)
+    if _plain_route(x) and _plain_route(w):
+        return grouped_mm_ref(x, w, offs)
+    if not (x.is_cuda and w.is_cuda and takes(x) and takes(w)):
+        raise ValueError(f"grouped_mm runs bf16 on the card, got x {x.dtype} on {x.device}, "
+                         f"w {w.dtype} on {w.device}")
+    return GroupedMMFn.apply(x, w, offs)
 
 
 # Kernel launches (forward and both gradients); callers reset it to 0.

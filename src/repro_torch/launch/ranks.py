@@ -125,20 +125,22 @@ def strided_shards():
 def dropped_slots():
     """A one-item list counting the MoE slots dropped at the capacity
     while the context holds: slots routed at a weight above 0 whose
-    combine weight ``moe._dispatch`` set to 0."""
+    combine weight ``moe._dispatch_capacity`` set to 0 (the capacity
+    buffer of ``moe_ffn``, of its plan and of ``moe_ffn_a2a``; the sorted
+    dispatch drops nothing)."""
     count = [0]
-    orig = moe._dispatch
+    orig = moe._dispatch_capacity
 
     def dispatch(xg, weights, ids, E, C):
         buf, src, w = orig(xg, weights, ids, E, C)
         count[0] += int(((w == 0) & (weights.reshape(w.shape) != 0)).sum())
         return buf, src, w
 
-    moe._dispatch = dispatch
+    moe._dispatch_capacity = dispatch
     try:
         yield count
     finally:
-        moe._dispatch = orig
+        moe._dispatch_capacity = orig
 
 
 def _flat(tree, prefix=()):

@@ -33,7 +33,9 @@ semantics:
 
 **Dropless.** Where a group's capacity takes all its tokens (``capacity(Tg,
 E, k, cf) >= Tg``, which ``capacity_factor >= E / k`` gives) no slot can be
-dropped, and ``_dispatch`` of a plain ``x`` sorts instead of filling the
+dropped, and ``_dispatch`` of a plain ``x`` that the grouped products take
+(``grouped_mm.takes``: on the CPU, or bf16 on the card; a float32 ``x`` on
+the card fills the buffer as below) sorts instead of filling the
 capacity buffer: the B S k slots sorted by expert (stably: token-major within an
 expert), each expert's row offsets found on the device
 (``searchsorted``), the rows gathered once, the three expert products run
@@ -88,7 +90,7 @@ from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.core import obs
-from repro_torch.kernels.grouped_mm.ops import grouped_mm
+from repro_torch.kernels.grouped_mm.ops import grouped_mm, takes
 from repro_torch.models.layers import Spec, constrain, on_shards, spec
 
 
@@ -179,7 +181,9 @@ def moe_ffn(
     if isinstance(x, DTensor):
         return _moe_sharded(x, router, wi, wg, wo, E, k, C, Tg,
                             token_spec or spec(None, None, None), buf_spec)
-    if C >= Tg:     # no expert is offered more slots than it takes: sort all tokens
+    # no expert is offered more slots than it takes: sort all tokens
+    dropless = C >= Tg and takes(x)
+    if dropless:
         G, Tg = 1, B * S
         C = Tg
     xg = x.reshape(G, Tg, D)
@@ -190,7 +194,7 @@ def moe_ffn(
         aux = load_balance_loss(logits, ids, E)
 
     buf, src, w = _dispatch(xg, weights, ids, E, C)
-    if C >= Tg:
+    if dropless:
         y = _combine_sorted(_experts_grouped(buf, wi, wg, wo), src, w, k)
     else:
         y = _combine(_experts(buf, wi, wg, wo), src, w, k)
@@ -200,10 +204,11 @@ def moe_ffn(
 def _dispatch(xg, weights, ids, E: int, C: int):
     """``moe_ffn``'s dispatch of the groups' tokens xg (G, Tg, D), routed
     to ``ids`` (G, Tg, k) at ``weights``: sorted by expert where the
-    capacity C takes every token (``_dispatch_sorted``; G is 1 there), else
-    into the capacity buffer (``_dispatch_capacity``). Returns (buf, src,
-    w), w (G, Tg*k) each slot's combine weight in slot order."""
-    if C >= xg.shape[1]:
+    capacity C takes every token and the grouped products take xg
+    (``_dispatch_sorted``; G is 1 there), else into the capacity buffer
+    (``_dispatch_capacity``). Returns (buf, src, w), w (G, Tg*k) each
+    slot's combine weight in slot order."""
+    if C >= xg.shape[1] and takes(xg):
         return _dispatch_sorted(xg[0], weights[0], ids[0], E)
     return _dispatch_capacity(xg, weights, ids, E, C)
 

@@ -367,18 +367,23 @@ def _sharded(tree) -> contextlib.AbstractContextManager:
 
 
 def train_step_tensors(plan: CellPlan, opt_cfg: adamw.AdamWConfig, *,
-                       donate: Optional[bool] = False):
+                       donate: Optional[bool] = None):
     """``make_train_step``'s step with its metrics left as tensors (the dry
     run traces it on fake tensors, which have no values). With ``donate``
     the update consumes the state it is given (``adamw_update``'s
     ``donate``): the state's param and moment containers come back empty;
-    None donates a state that lives on an accelerator, not on the CPU.
-    A MoE model's dropless layers add ``moe_load_max_ratio``, the worst
-    layer's busiest expert over the mean (``moe.collect_load``)."""
+    None, the default, donates a state that lives on an accelerator, not
+    on the CPU. A state that an earlier step consumed raises. A MoE
+    model's dropless layers add ``moe_load_max_ratio``, the worst layer's
+    busiest expert over the mean (``moe.collect_load``)."""
     cfg = plan.cfg
 
     def train_step(state: Dict[str, PyTree], batch: Dict[str, Any]):
         leaves = _leaves(state["params"])
+        if not leaves:
+            raise ValueError("train step: the state has no params; a donating step consumed "
+                             "it (step from the state it returned, or make the step with "
+                             "donate=False)")
         dev = leaves[0][1].device
         b = batch_to_device(batch, dev)
         ps = [t.detach().requires_grad_(True) for _, t in leaves]
@@ -501,7 +506,8 @@ def trace_cell(plan: CellPlan, mesh, *, opt_cfg: Optional[adamw.AdamWConfig] = N
     with FakeTensorMode(allow_non_fake_inputs=True):
         if kind == "train":
             args = (abstract_train_state(plan, mesh), input_specs(plan, mesh))
-            fn = train_step_tensors(plan, opt_cfg)
+            # undonated: the arguments are returned and read after the step
+            fn = train_step_tensors(plan, opt_cfg, donate=False)
         elif kind == "prefill":
             args = (abstract_sharded_params(plan, mesh, torch.bfloat16), input_specs(plan, mesh))
             fn = make_prefill_step(plan)

@@ -30,7 +30,10 @@ products (``grouped_mm``: forward, input and weight gradients) match the
 plain loop over experts (float32 products rounded once to bf16) to 1e-2 of
 each output's largest value, with empty experts, one expert taking every
 row, segments shorter than a tile and widths that are not multiples of a
-tile, at qwen3-moe-30b-a3b's widths too, and repeat bit for bit.
+tile, at qwen3-moe-30b-a3b's widths too, and repeat bit for bit. A
+float32 tensor on the card raises in ``grouped_mm``, and a float32 MoE layer
+on the card at ``capacity_factor`` E / k fills the capacity buffer instead
+(no launch), giving the CPU's dropless outputs.
 """
 import numpy as np
 import pytest
@@ -1073,6 +1076,37 @@ def test_grouped_mm_matches_plain_loop(cuda, case):
     assert not dw[empty].any()
     assert torch.equal(gmm_ops.launch_mm(x, w, offs), y)
     assert torch.equal(gmm_ops.launch_wgrad(x, dy, offs), dw)
+
+
+def test_grouped_mm_refuses_card_tensors_the_kernel_cannot_take(cuda):
+    """A float32 tensor on the card raises (the plain loop would multiply
+    every row by every expert there); its CPU copy takes the loop."""
+    x, w, _, offs = _grouped_case([3, 0, 70, 11], 64, 32, cuda)
+    assert gmm_ops.takes(x) and gmm_ops.takes(x.float().cpu()) and not gmm_ops.takes(x.float())
+    for xx, ww in ((x.float(), w.float()), (x, w.float()), (x.float(), w)):
+        with pytest.raises(ValueError, match="bf16 on the card"):
+            gmm_ops.grouped_mm(xx, ww, offs)
+    got = gmm_ops.grouped_mm(x.float().cpu(), w.float().cpu(), offs.cpu())
+    assert torch.equal(got, grouped_mm_ref(x.float().cpu(), w.float().cpu(), offs.cpu()))
+
+
+def test_float32_moe_layer_on_card_fills_the_buffer_at_dropless_capacity(cuda):
+    """At ``capacity_factor`` E / k a float32 layer on the card launches no
+    grouped product (the capacity buffer takes every slot) and gives the
+    CPU's dropless outputs within 1e-5 of their largest."""
+    from repro_torch.models import moe
+
+    B, S, D, E, F, k = 2, 64, 64, 8, 32, 2
+    g = torch.Generator().manual_seed(3)
+    args = [torch.randn(B, S, D, generator=g)] + [
+        torch.randn(*s, generator=g) * 0.3 for s in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    kw = dict(num_experts=E, top_k=k, capacity_factor=E / k)
+    want, aux_want = moe.moe_ffn(*args, **kw)
+    before = gmm_ops.grouped_mm.launches
+    got, aux = moe.moe_ffn(*[a.to(cuda) for a in args], **kw)
+    assert gmm_ops.grouped_mm.launches == before
+    assert _grouped_rel(got.cpu(), want) <= 1e-5
+    assert abs(float(aux) - float(aux_want)) <= 1e-5 * abs(float(aux_want))
 
 
 def test_grouped_mm_autograd_on_card_matches_plain(cuda):

@@ -9,6 +9,13 @@
   DTensor reshapes the products and sums the bias gradients in another
   order, and AdamW's first step is +-lr where a gradient is at rounding
   level). Each new param keeps its placement.
+* A planned step that donates (``donate=True``, the default for a state on
+  the card) gives the undonated planned step's new state bit for bit,
+  empties the sharded state's param and moment containers, and leaves the
+  plain state its tensors view whole; stepping again from the consumed
+  state raises ``ValueError``, while an undonated step taken three times
+  from one sharded state gives the same bits each time, as chip_smoke's
+  ``dist`` phase steps. ``train_step_tensors`` donates by the same default.
 * On that 1 x 1 mesh ``shard_state`` keeps the state's own tensors (no
   copy), and the planned train step of the reduced qwen2-1.5b, hymba-1.5b
   and qwen3-moe-30b-a3b runs no collective at all (DTensor's
@@ -20,6 +27,7 @@
   --full`` prints its line.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -89,6 +97,44 @@ def test_plan_on_one_device_changes_nothing():
                                   rtol=0, atol=1e-6), path
     finally:
         dist.destroy_process_group()
+
+
+def test_donating_planned_step_consumes_only_the_sharded_state():
+    cfg = reduced_config(get_config("qwen2-1.5b"))
+    shape = ShapeCell("t", "train", 32, 2)
+    opt = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=0, decay_steps=10)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    held = {k: t.clone() for k, t in _flat(state).items()}
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    mesh = make_host_mesh("cpu")
+    try:
+        plan = dataclasses.replace(R.plan_cell(cfg, shape, mesh), ce_chunk=16,
+                                   compute_dtype=torch.float32)
+        sbatch = R.shard_batch(plan, mesh, batch)
+        kept = R.make_train_step(plan, opt, donate=False)
+        sstate = R.shard_state(plan, mesh, state)
+        runs = [kept(sstate, sbatch) for _ in range(3)]
+        for (new, m) in runs[1:]:
+            assert m == runs[0][1]
+            for k, t in _flat(new["params"]).items():
+                assert torch.equal(t.to_local(), _flat(runs[0][0]["params"])[k].to_local()), k
+        sstate = R.shard_state(plan, mesh, state)
+        got, gm = R.make_train_step(plan, opt, donate=True)(sstate, sbatch)
+        assert sstate["params"] == {} and sstate["opt"]["m"] == {} and sstate["opt"]["v"] == {}
+        assert gm == runs[0][1]
+        want = _flat(runs[0][0])
+        for k, t in _flat(got).items():
+            assert tuple(t.placements) == tuple(want[k].placements), k
+            assert torch.equal(t.to_local(), want[k].to_local()), k
+        for k, t in _flat(state).items():       # the plain state the shards viewed
+            assert torch.equal(t, held[k]), k
+        with pytest.raises(ValueError, match="donating step consumed"):
+            R.make_train_step(plan, opt, donate=False)(sstate, sbatch)
+    finally:
+        dist.destroy_process_group()
+    default = lambda fn: inspect.signature(fn).parameters["donate"].default  # noqa: E731
+    assert default(R.train_step_tensors) is default(R.make_train_step) is None
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "hymba-1.5b", "qwen3-moe-30b-a3b"])

@@ -23,7 +23,10 @@ grouped products) is held to the capacity buffer at a capacity that takes
 every token, on skewed routing too (outputs, aux and gradients to F32_REL
 in float32, BF16_REL in bf16), to the benchmark's plain Qwen3-MoE
 reference (``perfbench/reference/moe_decoder.py``), and on meta tensors,
-forward and backward, where no value can be read back to the host.
+forward and backward, where no value can be read back to the host. Where
+the grouped products do not take ``x`` (``grouped_mm.takes``: a float32
+``x`` on the card) the layer fills the capacity buffer at that capacity
+and gives the dropless outputs.
 """
 import jax
 import jax.numpy as jnp
@@ -317,6 +320,20 @@ def test_dropless_matches_capacity_path(case, dtype):
     if case == "skewed":     # the skew loads some experts far above the mean
         _, ids = TMoE.top_k_routing(args[0].reshape(-1, D) @ args[1], k)
         assert torch.bincount(ids.reshape(-1), minlength=E).max() > 2 * B * S * k / E
+
+
+def test_dropless_capacity_without_the_grouped_products_fills_the_buffer(monkeypatch):
+    args, E, k = _dropless_inputs("skewed", torch.float32)
+    args = [a.detach() for a in args]
+    y, aux = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k)
+
+    def refused(*a, **kw):
+        raise AssertionError("grouped_mm called")
+
+    monkeypatch.setattr(TMoE, "takes", lambda t: False)
+    monkeypatch.setattr(TMoE, "grouped_mm", refused)
+    y2, aux2 = TMoE.moe_ffn(*args, num_experts=E, top_k=k, capacity_factor=E / k)
+    assert _max_rel(y2, y.numpy()) <= F32_REL and _max_rel(aux2, aux.numpy()) <= F32_REL
 
 
 def test_dropless_takes_the_groups_together():
